@@ -1,0 +1,31 @@
+"""common_tpu_torch — the PyTorch / CUDA port of `common_tpu`.
+
+A second package beside the JAX one, which stays the reference it is held
+against. This slice carries the main path: a Dirichlet-process mixture
+with one NIW feature, swept by blocked (uncollapsed) Gibbs, with the two
+Pallas kernels of that path rewritten by hand in CUDA C++ for Hopper
+(`csrc/`, built with nvcc at first use).
+
+Module map (each keeps its counterpart's name in `common_tpu`):
+  - validator.py, runtime_types.py, rng.py, models.py, state.py, runner.py
+  - likelihoods/  base + niw
+  - ops/          the CUDA kernels' wrappers and their plain versions
+  - kernels/      blocked.py (sweep, sweep_fused)
+  - convert.py    (new) state to and from numpy leaves
+
+Precision: the sampler runs in fp32. Reduced-precision products bias it
+(common_tpu/likelihoods/niw.py, sample_params_prec), so importing the
+package turns TF32 off for CUDA matmuls and cuDNN, and the fused sweep
+refuses to run if it was turned back on.
+"""
+
+import torch
+
+from common_tpu_torch import validator  # noqa: F401
+from common_tpu_torch.rng import rng  # noqa: F401
+from common_tpu_torch import models  # noqa: F401
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,40 @@
+// Philox4x32-10 counter-based generator (Salmon et al., SC'11), the
+// Random123 recipe. A draw depends only on (key, counter), so a kernel can
+// key its noise on (seed, row, cluster) and the stream does not depend on
+// how the grid tiles the work. Known-answer vectors: counter 0, key 0 gives
+// {0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8}.
+#pragma once
+
+#include <cstdint>
+
+namespace philox {
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
+    const uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+    key.x += kW0;
+    key.y += kW1;
+  }
+  return ctr;
+}
+
+// Uniform in (0, 1) from the top 24 bits, floored at 1e-7 as the Pallas
+// kernel's mantissa-fill uniform is (ops/gaussian_assign.py
+// _uniform_from_bits), so -log(-log(u)) is always finite.
+__device__ __forceinline__ float uniform_open(uint32_t bits) {
+  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+  return fmaxf(u, 1e-7f);
+}
+
+// Standard Gumbel draw keyed on (seed, a, b).
+__device__ __forceinline__ float gumbel(uint32_t seed, uint32_t a, uint32_t b) {
+  const uint4 bits = philox4x32_10(make_uint4(a, b, 0u, 0u), make_uint2(seed, 0x5EEDu));
+  return -logf(-logf(uniform_open(bits.x)));
+}
+
+}  // namespace philox

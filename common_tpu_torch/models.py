@@ -1,0 +1,57 @@
+"""User-facing model descriptors (port of `common_tpu/models.py`).
+
+The reference's ``common:microscopes/models.py`` pairs a likelihood with
+default hyperparameters and the runtime type of its data column. This slice
+carries the `niw` descriptor only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from common_tpu_torch import likelihoods as _lik
+from common_tpu_torch import runtime_types as rt
+from common_tpu_torch import validator
+from common_tpu_torch.likelihoods import base as _base
+
+
+@dataclass(frozen=True)
+class model_descriptor:
+    """A likelihood + its default hyperparameters + its data-column schema."""
+
+    likelihood: _base.Likelihood
+    default_hyper: Dict[str, Any] = field(default_factory=dict)
+    rtype: rt.runtime_type = rt.TYPE_F32
+
+    @property
+    def name(self) -> str:
+        return self.likelihood.name
+
+    def with_hyper(self, **hyper) -> "model_descriptor":
+        merged = {**self.default_hyper, **hyper}
+        return model_descriptor(self.likelihood, merged, self.rtype)
+
+    def canonical_hyper(self, hyper: Dict[str, Any] | None = None,
+                        dtype=torch.float32, device=None):
+        """Merge user hyper over defaults; tensors of `dtype` on `device`."""
+        merged = {**self.default_hyper, **(hyper or {})}
+        return self.likelihood.validate_hyper(merged, dtype=dtype, device=device)
+
+    def __repr__(self):
+        return f"<model {self.name} {self.rtype.dtype}{self.rtype.shape}>"
+
+
+def niw(dim: int) -> model_descriptor:
+    """Normal-Inverse-Wishart over R^dim (multivariate Gaussian rows)."""
+    validator.validate_positive(dim, "niw dim")
+    hyper = {
+        "mu0": np.zeros(dim, np.float32),
+        "kappa": 1.0,
+        "psi": np.eye(dim, dtype=np.float32),
+        "nu": float(dim),
+    }
+    return model_descriptor(_lik.niw, hyper, rt.vector(rt.TYPE_F32, dim))

@@ -1,0 +1,166 @@
+"""Fused Gaussian score + Gumbel + argmax: the blocked-Gibbs assignment draw.
+
+    z_n = argmax_k [ base_k - 1/2 ||B_k (x_n - mu_k)||^2 + Gumbel_nk ]
+
+`fused_gaussian_assign` replaces the Pallas kernel
+`common_tpu/ops/gaussian_assign.py:fused_gaussian_assign`
+(`_assign_kernel`). Like it, the [N, K] score and noise tables never reach
+device memory: X is read once and z written once. The CUDA kernel
+(`csrc/gaussian_assign.cu`) is bound by N*K*D^2 fp32 multiply-adds on the
+CUDA cores (no TF32, no tensor cores), which it feeds from an 8 x 8
+register tile per thread; it streams each B_k through shared memory in
+panels, because one B_k at D = 256 (256 KB) does not fit a block's
+227 KB. Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
+counter (row, k), so the draws do not depend on the tiling. The seed is
+read from a device int32 tensor, so the host never waits for it.
+
+Inputs
+  X     [N, D]     rows
+  mu    [K, D]     cluster means
+  binv  [K, D, D]  B_k = L_k^{-1} with L_k = chol(Sigma_k)
+  base  [K]        log w_k - 1/2 log|Sigma_k| - D/2 log 2 pi
+  seed  [1] int32  per-sweep seed, on the device of X
+Returns z [N] int32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from common_tpu_torch.ops import _build
+from common_tpu_torch.rng import gumbel_argmax
+
+
+def gaussian_scores(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
+                    base: torch.Tensor) -> torch.Tensor:
+    """[N, K] table base_k - 1/2 ||(x_n - mu_k) B_k^T||^2, one matmul per cluster."""
+    cols = []
+    for k in range(mu.shape[0]):
+        y = (X - mu[k]) @ binv[k].T
+        cols.append(base[k] - 0.5 * torch.sum(y * y, dim=-1))
+    return torch.stack(cols, dim=-1)
+
+
+def gaussian_assign_plain(X, mu, binv, base, generator: torch.Generator) -> torch.Tensor:
+    """Plain version: the score table, Gumbel noise from `generator`, argmax."""
+    logp = gaussian_scores(X, mu, binv, base)
+    return gumbel_argmax(logp, generator).to(torch.int32)
+
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * x for int64 tensors of uint32 values.
+
+    x is split into 16-bit halves so that no int64 product overflows.
+    """
+    t = m * (x & 0xFFFF)
+    u = m * (x >> 16)
+    s = t + ((u & 0xFFFF) << 16)
+    return (u >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 (`csrc/philox.cuh`) in int64 tensor ops.
+
+    ctr: four int64 tensors of uint32 values; key: two such tensors or ints.
+    Returns the four output words.
+    """
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int) -> torch.Tensor:
+    """[len(rows), k] float32: the Gumbel noise the CUDA kernel adds, in plain ops.
+
+    Philox4x32-10 keyed on (seed, 0x5EED) with counter (row, cluster, 0, 0),
+    the uniform from the top 24 bits of the first word, floored at 1e-7.
+    `rows` are global row indices, so any slice of X can be checked draw for
+    draw against the kernel.
+    """
+    r = rows.to(torch.int64)[:, None].expand(-1, k)
+    c = torch.arange(k, device=rows.device, dtype=torch.int64)[None, :].expand_as(r)
+    zero = torch.zeros_like(r)
+    key0 = seed.reshape(()).to(torch.int64) & _MASK32
+    bits = philox4x32_10((r, c, zero, zero), (key0, 0x5EED))[0]
+    u = ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
+    return -torch.log(-torch.log(u))
+
+
+def philox_scores(X, mu, binv, base, seed: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """[N, K] scores plus the kernel's own noise for rows row0 .. row0 + N - 1.
+
+    Its argmax is the draw the CUDA kernel makes with `seed`, up to fp32
+    rounding, so the kernel can be checked row for row.
+    """
+    rows = torch.arange(row0, row0 + X.shape[0], device=X.device)
+    return gaussian_scores(X, mu, binv, base) + philox_gumbel(seed, rows, mu.shape[0])
+
+
+def _check(X, mu, binv, base, seed) -> None:
+    if X.dim() != 2 or mu.dim() != 2 or binv.dim() != 3 or base.dim() != 1:
+        raise ValueError("expected X [N, D], mu [K, D], binv [K, D, D], base [K]")
+    (N, D), K = X.shape, mu.shape[0]
+    if mu.shape != (K, D) or binv.shape != (K, D, D) or base.shape != (K,) or K < 1:
+        raise ValueError(
+            f"shape mismatch: X {tuple(X.shape)}, mu {tuple(mu.shape)}, "
+            f"binv {tuple(binv.shape)}, base {tuple(base.shape)}"
+        )
+    if seed.numel() != 1:
+        raise ValueError(f"seed must hold one value, got shape {tuple(seed.shape)}")
+    for name, t in (("mu", mu), ("binv", binv), ("base", base), ("seed", seed)):
+        if t.device != X.device:
+            raise ValueError(f"X is on {X.device} but {name} is on {t.device}")
+
+
+def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
+                          base: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Sample z_n ~ Cat(softmax_k(base_k - 1/2 Mahalanobis^2)) for all rows.
+
+    CUDA: float32 inputs and an int32 seed, contiguous; launches
+    `csrc/gaussian_assign.cu`. CPU: `gaussian_assign_plain`, its noise
+    drawn from a generator seeded with `seed`. Any other device raises.
+    """
+    _check(X, mu, binv, base, seed)
+    if X.device.type == "cpu":
+        g = torch.Generator().manual_seed(int(seed.reshape(())))
+        return gaussian_assign_plain(X, mu, binv, base, g)
+    if X.device.type != "cuda":
+        raise ValueError(f"fused_gaussian_assign: no kernel for device {X.device}")
+    for name, t in (("X", X), ("mu", mu), ("binv", binv), ("base", base)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got {t.dtype}")
+    if seed.dtype != torch.int32:
+        raise ValueError(f"seed must be int32, got {seed.dtype}")
+    N, D = X.shape
+    K = mu.shape[0]
+    lib = _build.library()
+    with torch.cuda.device(X.device):
+        max_dim = lib.gaussian_assign_max_dim()
+    if D > max_dim:
+        raise ValueError(f"fused_gaussian_assign supports D <= {max_dim}, got {D}")
+    z = torch.empty(N, device=X.device, dtype=torch.int32)
+    if N == 0:
+        return z
+    with torch.cuda.device(X.device):
+        err = lib.gaussian_assign_launch(
+            X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
+            seed.data_ptr(), z.data_ptr(), N, D, K,
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    _build.check(err, "gaussian_assign_launch")
+    fused_gaussian_assign.launches += 1
+    return z
+
+
+fused_gaussian_assign.launches = 0

@@ -1,0 +1,72 @@
+"""Random-number handles: the PyTorch counterpart of `common_tpu/rng.py`.
+
+The JAX package threads splittable `jax.random` keys through every kernel.
+Here every sampling function takes an explicit `torch.Generator` on the
+device of the tensors it draws for, and consumes it in order: no hidden
+global generator is touched. The two frameworks give different numbers
+from one seed, so tests compare distributions, or feed both packages the
+same numpy inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from common_tpu_torch import validator
+
+
+class rng:
+    """Seeded handle mirroring the reference's Python ``rng(seed)`` object.
+
+    Holds one `torch.Generator` on `device`; pass `.generator` to the
+    samplers.
+    """
+
+    __slots__ = ("generator", "seed")
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        validator.validate_type(seed, int, "seed")
+        self.seed = seed
+        self.generator = torch.Generator(device=torch.device(device))
+        self.generator.manual_seed(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def __repr__(self):
+        return f"rng(seed={self.seed}, device={self.device})"
+
+
+def uniform_open(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    """Uniform draws kept inside the open interval (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=dtype)
+    fi = torch.finfo(dtype)
+    return u.clamp_(fi.tiny, 1.0 - fi.eps)
+
+
+def gumbel(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel draws, -log(-log(U)) with U in (0, 1)."""
+    return -torch.log(-torch.log(uniform_open(shape, generator, dtype)))
+
+
+def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator, dim: int = -1) -> torch.Tensor:
+    """Sample from a categorical given (possibly -inf masked) log-weights.
+
+    Gumbel noise plus argmax, batched over every other axis; -inf logits
+    are never selected. Ties go to the lowest index, as in `torch.argmax`.
+    """
+    g = gumbel(logits.shape, generator, logits.dtype)
+    return torch.argmax(logits + g, dim=dim)
+
+
+def standard_gamma(shape_param: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Gamma(shape_param, 1) draws, elementwise."""
+    return torch._standard_gamma(shape_param, generator=generator)
+
+
+def beta(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Beta(a, b) draws as G1 / (G1 + G2) from two Gamma draws."""
+    g1 = standard_gamma(a, generator)
+    g2 = standard_gamma(b, generator)
+    return g1 / (g1 + g2)

@@ -1,0 +1,327 @@
+"""Clustering state (port of `common_tpu/state.py`).
+
+Reference analogs: ``common:include/microscopes/common/group_manager.hpp``
+(CRP assignment vector, per-group counts and suffstats, EPPF scoring) and
+``entity_state.hpp``. As in the JAX package, dynamic group birth and death
+become a fixed-capacity padded representation: ``assignments[N]``
+(-1 = unassigned), ``counts[K_max]`` and per-feature suffstat dicts with a
+leading ``[K_max]`` axis. "Create group" touches the first empty slot; a
+group dies when its count reaches zero.
+
+Here the state is a dataclass of tensors on one device, which follows the
+data; every sampling function takes an explicit `torch.Generator` on that
+device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from common_tpu_torch import validator
+from common_tpu_torch.likelihoods import base as lik_base
+from common_tpu_torch.models import model_descriptor
+
+
+# ---------------------------------------------------------------------------
+# definition (model_definition analog -- mixturemodel:.../definition.py)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MixtureDefinition:
+    """Problem shape: number of rows, feature models, cluster capacity."""
+
+    n: int
+    models: Tuple[model_descriptor, ...]
+    k_max: int
+
+    def __post_init__(self):
+        validator.validate_positive(self.n, "n")
+        validator.validate_positive(self.k_max, "k_max")
+        validator.validate_nonempty(self.models, "models")
+        object.__setattr__(self, "models", tuple(self.models))
+
+    @property
+    def nfeatures(self) -> int:
+        return len(self.models)
+
+    def likelihoods(self):
+        return tuple(m.likelihood for m in self.models)
+
+
+def model_definition(n: int, models: Sequence[model_descriptor], k_max: int = 64):
+    """Reference-parity constructor (mixturemodel's ``model_definition``)."""
+    return MixtureDefinition(n, tuple(models), k_max)
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MixtureState:
+    """Padded-K clustering state (group_manager + per-feature suffstats).
+
+      assignments [N] int32, -1 = unassigned
+      counts      [K] int32, rows per cluster (0 = empty slot)
+      cluster_hp  dict: {'alpha': scalar} CRP, or {'alphas': [K]} fixed-K
+      stats       tuple over features of suffstat dicts, leaves [K, ...]
+      hypers      tuple over features of hyper dicts
+      lik_names   likelihood registry names, one per feature
+      fixed       True = fixed-K Dirichlet prior (fixed_group_manager)
+    """
+
+    assignments: torch.Tensor
+    counts: torch.Tensor
+    cluster_hp: Dict[str, torch.Tensor]
+    stats: Tuple[Dict[str, torch.Tensor], ...]
+    hypers: Tuple[Dict[str, torch.Tensor], ...]
+    lik_names: Tuple[str, ...] = ()
+    fixed: bool = False
+
+    @property
+    def n(self) -> int:
+        return self.assignments.shape[-1]
+
+    @property
+    def k_max(self) -> int:
+        return self.counts.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.counts.device
+
+    def nentities(self) -> int:
+        return self.n
+
+    def ngroups(self):
+        return (self.counts > 0).sum(-1)
+
+    def groups(self):
+        """Active group ids (host-side)."""
+        return np.nonzero(self.counts.cpu().numpy() > 0)[0]
+
+    def empty_groups(self):
+        return np.nonzero(self.counts.cpu().numpy() == 0)[0]
+
+    def likelihoods(self):
+        return tuple(lik_base.get(n) for n in self.lik_names)
+
+
+# ---------------------------------------------------------------------------
+# construction
+# ---------------------------------------------------------------------------
+def _float_dtype(x: torch.Tensor) -> torch.dtype:
+    return x.dtype if x.is_floating_point() else torch.float32
+
+
+def compute_stats(defn: MixtureDefinition, hypers, data, assignments):
+    """Per-feature suffstats from scratch; unassigned rows (gid -1) drop."""
+    K = defn.k_max
+    gid = torch.where(assignments >= 0, assignments, K)
+    return tuple(
+        desc.likelihood.stats_from_assignments(hyper, x, mask, gid, K)
+        for (x, mask), desc, hyper in zip(data, defn.models, hypers)
+    )
+
+
+def _assignment_counts(assignments, k_max):
+    """[k_max] int32 rows per slot; ids outside [0, k_max) are not counted.
+
+    A scatter-add into k_max + 1 bins, since `torch.bincount` waits for
+    the device to size its output.
+    """
+    gid = torch.where((assignments >= 0) & (assignments < k_max), assignments, k_max)
+    counts = torch.zeros(k_max + 1, dtype=torch.int64, device=assignments.device)
+    counts.scatter_add_(0, gid.long(), torch.ones_like(gid, dtype=torch.int64))
+    return counts[:k_max].to(torch.int32)
+
+
+def initialize(
+    defn: MixtureDefinition,
+    data,
+    generator: torch.Generator,
+    cluster_hp: Optional[Dict[str, Any]] = None,
+    feature_hps: Optional[Sequence[Dict[str, Any]]] = None,
+    assignment=None,
+    fixed: bool = False,
+) -> MixtureState:
+    """Build an initialized state (reference: state.initialize(defn, view, rng)).
+
+    data: ((values [N, ...], mask [N]), ...) tensors on one device; the
+    state lives there and its float type follows the first column's.
+    assignment: None samples from the CRP prior (capped at k_max);
+    otherwise an [N] int array of group ids.
+    """
+    validator.validate_len(data, defn.nfeatures, "data columns")
+    x0 = data[0][0]
+    device, dt = x0.device, _float_dtype(x0)
+    hypers = tuple(
+        desc.canonical_hyper(
+            None if feature_hps is None else feature_hps[f],
+            dtype=_float_dtype(x), device=device,
+        )
+        for f, (desc, (x, _)) in enumerate(zip(defn.models, data))
+    )
+    chp = cluster_hp or {}
+    if fixed:
+        alphas = chp.get("alphas", np.ones(defn.k_max, np.float32))
+        cluster = {"alphas": torch.as_tensor(np.asarray(alphas), device=device).to(dt)}
+    else:
+        cluster = {"alpha": torch.as_tensor(np.asarray(chp.get("alpha", 1.0)), device=device).to(dt)}
+
+    if assignment is None:
+        alpha = 1.0 if fixed else cluster["alpha"]
+        assignment = sample_crp_assignment(generator, defn.n, defn.k_max, alpha)
+    assignment = torch.as_tensor(assignment, device=device).to(torch.int32)
+
+    return MixtureState(
+        assignments=assignment,
+        counts=_assignment_counts(assignment, defn.k_max),
+        cluster_hp=cluster,
+        stats=compute_stats(defn, hypers, data, assignment),
+        hypers=hypers,
+        lik_names=tuple(m.name for m in defn.models),
+        fixed=fixed,
+    )
+
+
+def sample_crp_assignment(generator: torch.Generator, n: int, k_max: int, alpha):
+    """Sequential CRP prior draw, capped at k_max tables: [n] int32.
+
+    A host-side loop (the JAX package scans on the device). Row i copies
+    the table of a uniformly chosen earlier row with probability
+    i / (i + alpha), which seats it at table k with probability
+    n_k / (i + alpha), and opens the next table otherwise; once all k_max
+    tables are open it always copies. Tables open in order, so the open
+    ones are always 0 .. m-1, as in the JAX version's first-empty-slot rule.
+    """
+    validator.validate_positive(n, "n")
+    alpha = float(alpha)
+    u = torch.rand((2, n), generator=generator, device=generator.device, dtype=torch.float64)
+    pick, seat = u.cpu().tolist()
+    z = [0] * n
+    m = 1  # row 0 opens table 0
+    for i in range(1, n):
+        w = alpha if m < k_max else 0.0
+        if seat[i] * (i + w) < i:
+            z[i] = z[int(pick[i] * i)]
+        else:
+            z[i] = m
+            m += 1
+    return torch.tensor(z, dtype=torch.int32, device=generator.device)
+
+
+# ---------------------------------------------------------------------------
+# scores
+# ---------------------------------------------------------------------------
+def crp_prior_scores(state: MixtureState):
+    """Per-slot log prior weight for seating a new row ([K], -inf = invalid).
+
+    CRP: log n_k for active slots; log alpha on the first empty slot.
+    Fixed-K Dirichlet: log(n_k + alpha_k) on every slot.
+    """
+    if state.fixed:
+        alphas = state.cluster_hp["alphas"]
+        return torch.log(state.counts.to(alphas.dtype) + alphas)
+    alpha = state.cluster_hp["alpha"]
+    counts_f = state.counts.to(alpha.dtype)
+    active = state.counts > 0
+    crp = torch.where(active, torch.log(counts_f), torch.full_like(counts_f, -torch.inf))
+    empty = (~active).to(torch.int32)
+    can_open = empty.any()
+    first_empty = torch.argmax(empty)
+    k = torch.arange(state.k_max, device=state.device)
+    return torch.where((k == first_empty) & can_open, torch.log(alpha), crp)
+
+
+def is_saturated(state: MixtureState):
+    """True when every K_max slot is occupied (no empty slot to open).
+
+    A CRP state with all slots active stops proposing new clusters; the
+    samplers stay valid on the truncated support, but the truncation is no
+    longer negligible. Fixed-K states are never saturated.
+    """
+    if state.fixed:
+        return torch.tensor(False)
+    return (state.counts > 0).all()
+
+
+def score_assignment(state: MixtureState):
+    """EPPF: log p(partition) (group_manager::score_assignment).
+
+    CRP:  K+ log alpha + sum_k lgamma(n_k) + lgamma(alpha) - lgamma(alpha + N)
+    Fixed-K: Dirichlet-multinomial over assignment counts.
+    """
+    if state.fixed:
+        a = state.cluster_hp["alphas"]
+        counts_f = state.counts.to(a.dtype)
+        n = counts_f.sum()
+        a0 = a.sum()
+        return (
+            (torch.lgamma(a + counts_f) - torch.lgamma(a)).sum()
+            + torch.lgamma(a0)
+            - torch.lgamma(a0 + n)
+        )
+    alpha = state.cluster_hp["alpha"]
+    counts_f = state.counts.to(alpha.dtype)
+    n = counts_f.sum()
+    active = state.counts > 0
+    kplus = active.sum().to(alpha.dtype)
+    return (
+        kplus * torch.log(alpha)
+        + torch.where(active, torch.lgamma(counts_f), torch.zeros_like(counts_f)).sum()
+        + torch.lgamma(alpha)
+        - torch.lgamma(alpha + n)
+    )
+
+
+def score_likelihood(state: MixtureState, fid: Optional[int] = None):
+    """Sum over active groups of each feature's marginal loglik (score_data).
+
+    fid=None sums over all features.
+    """
+    active = state.counts > 0
+    fids = range(len(state.stats)) if fid is None else [fid]
+    liks = state.likelihoods()
+    total = 0.0
+    for f in fids:
+        ml = liks[f].marginal_loglik(state.hypers[f], state.stats[f])
+        total = total + torch.where(active, ml, torch.zeros_like(ml)).sum()
+    return total
+
+
+def score_joint(state: MixtureState):
+    """log p(partition, data): the enumeration oracle's target."""
+    return score_assignment(state) + score_likelihood(state)
+
+
+HELDOUT_BATCH = 1024  # rows scored at a time by heldout_logp
+
+
+def heldout_logp(state: MixtureState, data):
+    """[n] log posterior-predictive density of held-out rows.
+
+        log p(x* | state) = logsumexp_k(log w_k + sum_f pred_logpdf_{k,f})
+                            - logsumexp_k(log w_k)
+
+    with w_k the CRP/Dirichlet seating weights (`crp_prior_scores`) and
+    each feature's collapsed predictive (Student-t for NIW). Each feature's
+    predictive is factored once for the state; the rows are then scored
+    HELDOUT_BATCH at a time. Masked cells contribute nothing.
+    """
+    batch = HELDOUT_BATCH
+    logw = crp_prior_scores(state)  # [K]
+    norm = torch.logsumexp(logw, dim=0)
+    liks = state.likelihoods()
+    preds = [lik.predictive(h, s) for lik, h, s in zip(liks, state.hypers, state.stats)]
+    n = data[0][0].shape[0]
+    out = []
+    for start in range(0, n, batch):
+        lp = logw
+        for (x, mask), lik, pred in zip(data, liks, preds):
+            s = lik.predictive_logpdf(pred, x[start:start + batch])  # [b, K]
+            lp = lp + s * mask[start:start + batch, None].to(s.dtype)
+        out.append(torch.logsumexp(lp, dim=-1) - norm)
+    return torch.cat(out)

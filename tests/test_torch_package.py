@@ -1,0 +1,91 @@
+"""Package-level properties of the port: no JAX, fp32 policy, generators, build."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from common_tpu_torch import models, rng
+from common_tpu_torch import state as st
+from common_tpu_torch import validator
+from common_tpu_torch.kernels import blocked
+from common_tpu_torch.ops import _build
+from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, uniform_open
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import common_tpu_torch, common_tpu_torch.runner, common_tpu_torch.convert\n"
+        "import common_tpu_torch.kernels.blocked, common_tpu_torch.ops._build\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_tf32_is_off_and_the_sweeps_refuse_it():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    defn = st.model_definition(20, [models.niw(2)], k_max=4)
+    data = ((torch.randn(20, 2), torch.ones(20)),)
+    s = st.initialize(defn, data, rng(0).generator)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for sweep in (blocked.sweep, blocked.sweep_fused):
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                sweep(s, data, rng(1).generator)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_gumbel_draws_are_finite_and_skip_masked_logits():
+    g = rng(0).generator
+    u = uniform_open((200000,), g)
+    assert float(u.min()) > 0.0 and float(u.max()) < 1.0
+    assert torch.isfinite(gumbel((200000,), g)).all()
+    logits = torch.tensor([0.0, -torch.inf, 1.0, -torch.inf])
+    z = gumbel_argmax(logits.expand(5000, 4), g)
+    assert set(z.unique().tolist()) <= {0, 2}
+    freq = (z == 2).double().mean().item()
+    assert abs(freq - np.exp(1) / (1 + np.exp(1))) < 0.03
+
+
+def test_beta_draws_mean():
+    g = rng(2).generator
+    a, b = torch.full((20000,), 2.0), torch.full((20000,), 5.0)
+    v = beta(a, b, g)
+    assert abs(v.mean().item() - 2.0 / 7.0) < 0.01
+
+
+def test_rng_handle_and_validation():
+    h = rng(5)
+    assert h.device == torch.device("cpu") and "seed=5" in repr(h)
+    a = torch.rand(3, generator=h.generator)
+    b = torch.rand(3, generator=rng(5).generator)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        rng(1.5)
+    with pytest.raises(ValueError):
+        models.niw(0)
+    with pytest.raises(ValueError):
+        validator.validate_one_of("x", ("a", "b"), "kernel name")
+    defn = st.model_definition(4, [models.niw(2)], k_max=3)
+    with pytest.raises(ValueError, match="data columns"):
+        st.initialize(defn, (), rng(0).generator)
+
+
+def test_build_is_keyed_by_the_sources():
+    names = [p.name for p in _build._sources()]
+    assert "gaussian_assign.cu" in names and "suffstat.cu" in names and "philox.cuh" in names
+    digest = _build._digest()
+    assert len(digest) == 16 and digest == _build._digest()
+    assert "sm_90a" in " ".join(_build.ARCH_FLAGS)
