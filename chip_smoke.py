@@ -6,13 +6,19 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. Environment: the card's name and power limit (nvidia-smi), and the
-   build of the CUDA kernels from `common_tpu_torch/csrc/`.
+   build of the CUDA kernels from `common_tpu_torch/csrc/` (one nvcc per
+   source, all at once).
 2. Each kernel against its plain PyTorch version on the card:
    assignment on well-separated clusters (n=16421, D=256, K=64, dense
    triangular B_k) against the plain sampler, and draw for draw against
    the plain scores plus the kernel's own Philox noise, there and on
    clusters told apart by B_k alone; its sampling distribution (n=64, D=4,
-   K=5, 300 seeds); scatter stats at 1M x 256, K=64 with masked rows and a
+   K=5, 300 seeds); the multi-chain assignment draw for draw on dense,
+   non-triangular B_k (n=16421, D=256, K=64, C=4), equal to the
+   single-chain kernel at C=1, and its distribution with independent
+   chains (n=64, D=4, K=5, C=3, 300 seeds); the linear assignment draw for
+   draw at 100k x 64, K=32 and at a ragged N with D=300, and its
+   distribution; scatter stats at 1M x 256, K=64 with masked rows and a
    ragged N, and at a small shape against float64 on the host.
 3. The main path at 1M x 256, K_max=64: model_definition -> initialize
    (CRP) -> runner(..., [("assign_blocked_fused", {})]); one first sweep,
@@ -24,13 +30,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    own inputs; times fused and plain sweeps and each kernel against its
    plain version on those inputs; traces one more sweep for device time by
    kernel and the device's idle share.
+4. Path A, multi-chain, on the data of phase 3: four CRP initialisations,
+   stacked; one first sweep_chains(..., fused=True) timed apart, then 5
+   sweeps with the counts set to 0 just before, each followed by every
+   chain's score_joint and held-out log density. Checks launches (the
+   multi-chain kernel once a sweep, the scatter kernel once a chain a
+   sweep), counts, finite values, the stats against the plain restat, and
+   the multi-chain kernel draw for draw on the sweep's own inputs over all
+   rows and chains; prints split-R-hat, ESS, chain-sweeps/s, the kernel
+   against its plain version and the idle share of a traced sweep.
+5. Path B, config 2: a Beta-Bernoulli DPMM at 100k x 64, K_max=32 (8
+   planted Beta(0.5, 0.5) profiles, numpy seed 0, 4096 held-out rows),
+   runner(..., [("assign_blocked_fused", {}), ("slice_hp", {...})]) for 8
+   iterations with the counts set to 0 just before. Checks launches,
+   finite scores, counts, the held-out log density against the
+   one-cluster state's, and the linear kernel draw for draw on the path's
+   own inputs; prints iterations/s, the kernel against its plain version
+   and the slice sampler's share.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
-on the main path's z. The assignment kernel returns labels, so its
+on the main path's z. The assignment kernels return labels, so their
 `max_abs_err` is the largest shortfall, in nats, of the perturbed score of
 the kernel's choice below the plain maximum (0 where they agree, at most
 the fp32 tie band on a tie), with `mismatch` the rows outside the tie band
-that differ and `tie_rows` the rows inside it, over the main path's 1M rows.
+that differ and `tie_rows` the rows inside it, on their path's own inputs.
+Each `launches` is the count from its path's driven run (phases 3, 4, 5).
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Needs a CUDA card: without one it exits 1.
@@ -48,6 +72,8 @@ import numpy as np
 SEED = 0
 N, D, K_MAX, HELDOUT = 1_000_000, 256, 64, 4096
 N_SWEEPS = 10
+N_CHAINS, CHAIN_SWEEPS = 4, 5
+N2, D2, K2, ITERS2 = 100_000, 64, 32, 8  # config 2
 
 
 class SmokeFailure(Exception):
@@ -86,8 +112,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_sweep(run, gen) -> None:
-    """Device time by kernel, and the idle share, over one traced runner sweep."""
+def profile_sweep(fn) -> float:
+    """Device time by kernel, and the idle share, over one traced call of fn()."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -95,7 +121,7 @@ def profile_sweep(run, gen) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run.run(gen, 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
@@ -103,10 +129,13 @@ def profile_sweep(run, gen) -> None:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    log(f"traced runner sweep: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}")
+    idle = 1 - busy / wall_ms
+    launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"traced call: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share {idle:.3f}, "
+        f"{launched} device kernels and copies")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  {ms:9.3f} ms  {name[:90]}")
+    return idle
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +201,9 @@ def _seed(value: int, device):
     return torch.tensor([value], dtype=torch.int32, device=device)
 
 
-def assign_exact_check(z, X, mu, binv, base, seed, rtol=3e-5, chunk=1 << 17) -> dict:
-    """The kernel's z against the argmax of the plain scores plus the kernel's
-    own Philox noise (`philox_scores`), row for row.
+def exact_check(z, n, perturbed, rtol=3e-5, chunk=1 << 17) -> dict:
+    """A kernel's z against the argmax of `perturbed(a, b)`, the plain scores
+    plus the kernel's own Philox noise for rows a .. b-1, row for row.
 
     A row whose top two perturbed scores lie within rtol * |top| + 1e-3 of
     each other is an fp32 tie and may go either way; every other row must
@@ -183,12 +212,10 @@ def assign_exact_check(z, X, mu, binv, base, seed, rtol=3e-5, chunk=1 << 17) -> 
     """
     import torch
 
-    from common_tpu_torch.ops.gaussian_assign import philox_scores
-
     ties = mismatch = 0
     shortfall = 0.0
-    for a in range(0, X.shape[0], chunk):
-        v = philox_scores(X[a:a + chunk], mu, binv, base, seed, row0=a)
+    for a in range(0, n, chunk):
+        v = perturbed(a, min(n, a + chunk))
         top2, arg = v.topk(2, dim=-1)
         tie = (top2[:, 0] - top2[:, 1]) <= rtol * top2[:, 0].abs() + 1e-3
         zc = z[a:a + chunk].long()
@@ -197,36 +224,81 @@ def assign_exact_check(z, X, mu, binv, base, seed, rtol=3e-5, chunk=1 << 17) -> 
         off = top2[:, 0] - v.gather(1, zc[:, None])[:, 0]
         shortfall = max(shortfall, float(off.max()))
     torch.cuda.synchronize()
-    return {"rows": int(X.shape[0]), "ties": ties, "mismatch": mismatch, "shortfall": shortfall}
+    return {"rows": int(n), "ties": ties, "mismatch": mismatch, "shortfall": shortfall}
 
 
-def require_exact(check: dict, what: str) -> None:
+def assign_exact_check(z, X, mu, binv, base, seed, chain=0) -> dict:
+    """The Gaussian kernel (`philox_scores`), or chain `chain` of the
+    multi-chain one given that chain's slots."""
+    from common_tpu_torch.ops.gaussian_assign import philox_scores
+
+    return exact_check(z, X.shape[0], lambda a, b: philox_scores(
+        X[a:b], mu, binv, base, seed, row0=a, chain=chain))
+
+
+def chains_exact_check(z, X, mu, binv, base, seed, n_chains) -> dict:
+    """The multi-chain kernel's z [C, N], every chain against its own slots."""
+    K = mu.shape[0] // n_chains
+    parts = [assign_exact_check(z[c], X, mu[c * K:(c + 1) * K], binv[c * K:(c + 1) * K],
+                                base[c * K:(c + 1) * K], seed, chain=c) for c in range(n_chains)]
+    return {"rows": sum(p["rows"] for p in parts), "ties": sum(p["ties"] for p in parts),
+            "mismatch": sum(p["mismatch"] for p in parts),
+            "shortfall": max(p["shortfall"] for p in parts)}
+
+
+def linear_exact_check(z, X, W, base, seed) -> dict:
+    from common_tpu_torch.ops.linear_assign import linear_philox_scores
+
+    return exact_check(z, X.shape[0], lambda a, b: linear_philox_scores(
+        X[a:b], W, base, seed, row0=a))
+
+
+def require_exact(check: dict, what: str) -> dict:
     log(f"{what}: {check['mismatch']} of {check['rows']} rows differ from the plain "
         f"argmax with the kernel's noise outside the fp32 tie band (bar 0); "
         f"{check['ties']} tie rows (bar <= 1%); max shortfall {check['shortfall']:.3e} nats")
     require(check["mismatch"] == 0, f"{what}: assignment kernel disagrees with its plain version")
     require(check["ties"] <= 0.01 * check["rows"], f"{what}: too many fp32 ties")
+    return check
 
 
-def phase_kernels() -> dict:
+def require_distribution(zs, probs, what: str) -> None:
+    """Per-row frequencies of reps draws zs [reps, n] against probs [n, k]."""
+    reps, (n, k) = zs.shape[0], probs.shape
+    counts = np.zeros((n, k))
+    for zi in zs:
+        counts[np.arange(n), zi] += 1
+    freq = counts / reps
+    max_gap = float(np.abs(freq - probs).max())
+    mean_gap = float(np.abs(freq.mean(0) - probs.mean(0)).max())
+    log(f"{what} x{reps} seeds: max gap {max_gap:.4f} (bar < 0.15), "
+        f"mean gap {mean_gap:.4f} (bar < 0.03)")
+    require(max_gap < 0.15 and mean_gap < 0.03, f"{what}: distribution off")
+
+
+def _softmax_problem(n, d, k, seed, device):
+    """Small ambiguous rows for the distribution checks: X [n, d], centers [k, d], base [k]."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    mu = r.normal(scale=0.8, size=(k, d))
+    X = r.normal(scale=1.0, size=(n, d))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (X, mu, r.normal(size=k))]
+
+
+def _check_gaussian(dev, g) -> dict:
     import torch
 
     from common_tpu_torch.ops.gaussian_assign import fused_gaussian_assign, gaussian_assign_plain
-    from common_tpu_torch.ops.suffstat import fused_scatter_stats, scatter_stats_plain
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    out = {}
-
-    # assignment, well separated (ragged N, dense triangular B_k): both
-    # samplers are near-deterministic
+    # well separated (ragged N, dense triangular B_k): both samplers are
+    # near-deterministic
     n_sep = 16384 + 37
     X, mu, binv, base = _assign_problem(n_sep, 256, 64, 6.0, 5, dev)
     z = fused_gaussian_assign(X, mu, binv, base, _seed(13, dev))
     zp = gaussian_assign_plain(X, mu, binv, base, g)
     torch.cuda.synchronize()
     agree = (z == zp).double().mean().item()
-    out["assign_agree"] = agree
     log(f"assign n={n_sep} D=256 K=64 sep=6: agreement {agree:.6f} (bar > 0.99)")
     require(agree > 0.99, f"assignment agreement {agree} <= 0.99")
     require_exact(assign_exact_check(z, X, mu, binv, base, _seed(13, dev)),
@@ -245,29 +317,105 @@ def phase_kernels() -> dict:
         f"{moved:.4f} (bar > 0.5)")
     require(moved > 0.5, "the covariance check does not depend on B_k's off-diagonal part")
 
-    # assignment distribution: per-row frequencies against the softmax
-    d, k, n, reps = 4, 5, 64, 300
-    r = np.random.default_rng(1)
-    mu_s = torch.tensor(r.normal(scale=0.8, size=(k, d)), dtype=torch.float32, device=dev)
-    X_s = torch.tensor(r.normal(scale=1.0, size=(n, d)), dtype=torch.float32, device=dev)
-    binv_s = torch.eye(d, device=dev).expand(k, d, d).contiguous()
-    base_s = torch.tensor(r.normal(size=k), dtype=torch.float32, device=dev)
+    # distribution: per-row frequencies against the softmax
+    X_s, mu_s, base_s = _softmax_problem(64, 4, 5, 1, dev)
+    binv_s = torch.eye(4, device=dev).expand(5, 4, 4).contiguous()
     diff = X_s[:, None, :] - mu_s[None]
     probs = torch.softmax(base_s[None, :] - 0.5 * (diff * diff).sum(-1), dim=-1).cpu().numpy()
-    zs = torch.stack([
-        fused_gaussian_assign(X_s, mu_s, binv_s, base_s, _seed(100 + i, dev)) for i in range(reps)
-    ]).cpu().numpy()
-    counts = np.zeros((n, k))
-    for zi in zs:
-        counts[np.arange(n), zi] += 1
-    freq = counts / reps
-    max_gap = float(np.abs(freq - probs).max())
-    mean_gap = float(np.abs(freq.mean(0) - probs.mean(0)).max())
-    log(f"assign distribution n=64 D=4 K=5 x{reps} seeds: max gap {max_gap:.4f} "
-        f"(bar < 0.15), mean gap {mean_gap:.4f} (bar < 0.03)")
-    require(max_gap < 0.15 and mean_gap < 0.03, "assignment distribution off")
+    zs = torch.stack([fused_gaussian_assign(X_s, mu_s, binv_s, base_s, _seed(100 + i, dev))
+                      for i in range(300)]).cpu().numpy()
+    require_distribution(zs, probs, "assign distribution n=64 D=4 K=5")
+    return {"assign_agree": agree}
 
-    # scatter stats at the main path's size, masked rows and a ragged N
+
+def _check_chains(dev) -> None:
+    """The multi-chain kernel: draw for draw on dense B_k, C=1 against the
+    single-chain kernel, and its distribution with independent chains."""
+    import torch
+
+    from common_tpu_torch.ops.gaussian_assign import (
+        fused_gaussian_assign,
+        fused_gaussian_assign_chains,
+    )
+
+    n, d, k, c = 16384 + 37, 256, 64, 4
+    r = np.random.default_rng(7)
+    X, _, _, _ = _covariance_problem(n, d, 1, 8, dev)
+    mu = torch.tensor(r.normal(scale=0.3, size=(c * k, d)), dtype=torch.float32, device=dev)
+    # dense and not triangular, like the Bartlett precision square root minv
+    minv = torch.tensor(r.normal(scale=d ** -0.5, size=(c * k, d, d)) + np.eye(d),
+                        dtype=torch.float32, device=dev)
+    base = torch.tensor(r.normal(size=c * k), dtype=torch.float32, device=dev)
+    seed = _seed(31, dev)
+    z = fused_gaussian_assign_chains(X, mu, minv, base, seed, c)
+    require_exact(chains_exact_check(z, X, mu, minv, base, seed, c),
+                  f"assign_chains n={n} D={d} K={k} C={c}, dense minv, draw for draw")
+
+    # chain 0's slots are the first K rows, so these slices are contiguous
+    z1 = fused_gaussian_assign_chains(X, mu[:k], minv[:k], base[:k], seed, 1)[0]
+    zk = fused_gaussian_assign(X, mu[:k], minv[:k], base[:k], seed)
+    same = int((z1 == zk).sum())
+    log(f"assign_chains at C=1 against the single-chain kernel: {same} of {n} rows equal (bar all)")
+    require(same == n, "the multi-chain kernel at C=1 differs from the single-chain kernel")
+    require(torch.equal(z[0], zk), "chain 0 of the multi-chain kernel differs from the "
+                                   "single-chain kernel")
+
+    # distribution: identical parameters in every chain, independent noise
+    cd, ck, cn, cc, reps = 4, 5, 64, 3, 300
+    X_s, mu0, base0 = _softmax_problem(cn, cd, ck, 1, dev)
+    mu_s = mu0.repeat(cc, 1)
+    binv_s = torch.eye(cd, device=dev).expand(cc * ck, cd, cd).contiguous()
+    diff = X_s[:, None, :] - mu0[None]
+    probs = torch.softmax(base0[None, :] - 0.5 * (diff * diff).sum(-1), dim=-1).cpu().numpy()
+    zs = np.stack([fused_gaussian_assign_chains(X_s, mu_s, binv_s, base0.repeat(cc),
+                                                _seed(100 + i, dev), cc).cpu().numpy()
+                   for i in range(reps)])  # [reps, C, n]
+    for ch in range(cc):
+        require_distribution(zs[:, ch], probs, f"assign_chains distribution chain {ch}, "
+                                               f"n={cn} D={cd} K={ck} C={cc}")
+    agree = float((zs[:, 0] == zs[:, 1]).mean())
+    expected = float((probs ** 2).sum(1).mean())
+    log(f"  chains 0 and 1 agree on {agree:.4f} of draws; independent draws: {expected:.4f} "
+        f"(bar |gap| < 0.1)")
+    require(abs(agree - expected) < 0.1, "the chains' noise is not independent")
+
+
+def _linear_problem(n, d, k, seed, device):
+    """bbv-like binary rows around k Beta(0.5, 0.5) profiles: X, W = logit p, base."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    p = np.clip(r.beta(0.5, 0.5, size=(k, d)), 1e-3, 1 - 1e-3)
+    X = (r.random((n, d)) < p[r.integers(0, k, n)]).astype(np.float32)
+    W = np.log(p) - np.log1p(-p)
+    base = np.log1p(-p).sum(-1) + np.log(r.dirichlet(np.ones(k)))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (X, W, base)]
+
+
+def _check_linear(dev) -> None:
+    import torch
+
+    from common_tpu_torch.ops.linear_assign import fused_linear_assign
+
+    for n, d, k, seed in ((N2, D2, K2, 41), (5000 + 13, 300, 33, 43)):
+        X, W, base = _linear_problem(n, d, k, seed, dev)
+        z = fused_linear_assign(X, W, base, _seed(seed, dev))
+        require_exact(linear_exact_check(z, X, W, base, _seed(seed, dev)),
+                      f"linear_assign n={n} D={d} K={k}, draw for draw")
+
+    X_s, W_s, base_s = _softmax_problem(64, 4, 5, 2, dev)
+    probs = torch.softmax(X_s @ W_s.T + base_s, dim=-1).cpu().numpy()
+    zs = torch.stack([fused_linear_assign(X_s, W_s, base_s, _seed(100 + i, dev))
+                      for i in range(300)]).cpu().numpy()
+    require_distribution(zs, probs, "linear_assign distribution n=64 D=4 K=5")
+
+
+def _check_scatter(dev, g) -> None:
+    import torch
+
+    from common_tpu_torch.ops.suffstat import fused_scatter_stats, scatter_stats_plain
+
+    # at the main path's size, masked rows and a ragged N
     n_big = N + 37
     r = np.random.default_rng(3)
     Xb = torch.randn((n_big, D), generator=g, device=dev)
@@ -281,7 +429,7 @@ def phase_kernels() -> dict:
     require(err <= 1e-4 * scale, "scatter stats disagree at full size")
     del Xb, zb, got, want
 
-    # scatter stats at a small shape against float64 on the host
+    # at a small shape against float64 on the host
     r = np.random.default_rng(4)
     Xs = r.normal(size=(1000, 20)).astype(np.float32)
     zsm = r.integers(-1, 8, 1000).astype(np.int32)  # -1 and 7 = K: dropped
@@ -292,13 +440,49 @@ def phase_kernels() -> dict:
     log(f"scatter N=1000 D=20 K=7 vs float64: max abs err {err:.3e} "
         f"(bar 1e-5 * {np.abs(want).max():.3e})")
     require(err <= 1e-5 * np.abs(want).max(), "scatter stats disagree with float64")
+
+
+def phase_kernels() -> dict:
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = _check_gaussian(dev, g)
+    _check_chains(dev)
+    _check_linear(dev)
+    _check_scatter(dev, g)
     return out
 
 
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
-def phase_main_path(kernel_checks: dict) -> dict:
+def headline_data():
+    """The 1M x 256 rows of phases 3 and 4, 4096 held-out rows, and the NIW hypers.
+
+    8 planted centers at scale 4 plus unit noise (bench.py make_data_device),
+    hypers mu0 = 0, kappa = 1, psi = I, nu = D + 2 (bench.py:270-275).
+    """
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    r = np.random.default_rng(SEED)
+    centers = 4.0 * r.standard_normal((8, D), dtype=np.float32)
+    X_all = centers[r.integers(0, 8, N + HELDOUT)]
+    X_all += r.standard_normal((N + HELDOUT, D), dtype=np.float32)
+    x = torch.from_numpy(X_all[:N]).to(dev)
+    xh = torch.from_numpy(X_all[N:]).to(dev)
+    del X_all
+    torch.cuda.synchronize()
+    log(f"data {N}x{D} + {HELDOUT} held out: {time.perf_counter() - t0:.2f} s (host numpy)")
+    hyper = {"mu0": np.zeros(D, np.float32), "kappa": 1.0,
+             "psi": np.eye(D, dtype=np.float32), "nu": float(D + 2)}
+    return {"data": ((x, torch.ones(N, device=dev)),),
+            "heldout": ((xh, torch.ones(HELDOUT, device=dev)),), "hyper": hyper}
+
+
+def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     import torch
 
     from common_tpu_torch import models, rng, state as st
@@ -308,22 +492,8 @@ def phase_main_path(kernel_checks: dict) -> dict:
     from common_tpu_torch.runner import runner
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    # 8 planted centers at scale 4 plus unit noise (bench.py make_data_device)
-    r = np.random.default_rng(SEED)
-    centers = 4.0 * r.standard_normal((8, D), dtype=np.float32)
-    X_all = centers[r.integers(0, 8, N + HELDOUT)]
-    X_all += r.standard_normal((N + HELDOUT, D), dtype=np.float32)
-    x = torch.from_numpy(X_all[:N]).to(dev)
-    xh = torch.from_numpy(X_all[N:]).to(dev)
-    del X_all
-    mask = torch.ones(N, device=dev)
-    data = ((x, mask),)
-    torch.cuda.synchronize()
-    log(f"data {N}x{D} + {HELDOUT} held out: {time.perf_counter() - t0:.2f} s (host numpy)")
-
-    hyper = {"mu0": np.zeros(D, np.float32), "kappa": 1.0,
-             "psi": np.eye(D, dtype=np.float32), "nu": float(D + 2)}
+    data, hyper = headline["data"], headline["hyper"]
+    x, mask = data[0]
     defn = st.model_definition(N, [models.niw(D)], k_max=K_MAX)
     gen = rng(SEED, dev).generator
     t0 = time.perf_counter()
@@ -373,7 +543,7 @@ def phase_main_path(kernel_checks: dict) -> dict:
     require(torch.equal(s.counts, plain.counts), "counts disagree with the plain restat")
 
     t0 = time.perf_counter()
-    lp = st.heldout_logp(s, ((xh, torch.ones(HELDOUT, device=dev)),))
+    lp = st.heldout_logp(s, headline["heldout"])
     lp_dim = lp.mean().item() / D
     log(f"held-out logp/dim ({HELDOUT} rows): {lp_dim:.5f} "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -407,7 +577,7 @@ def phase_main_path(kernel_checks: dict) -> dict:
     log(f"gaussian_assign {N}x{D} K={K_MAX}: kernel {k1:.2f} ms, plain {p1:.2f} ms")
     log(f"scatter_stats {N}x{D} K={K_MAX} (main-path z): kernel {k2:.2f} ms, plain {p2:.2f} ms, "
         f"max abs err {err2:.3e}")
-    profile_sweep(run, gen)
+    idle = profile_sweep(lambda: run.run(gen, 1))
     return {
         "kernels": [
             {"name": "gaussian_assign", "route": "cuda",
@@ -426,7 +596,237 @@ def phase_main_path(kernel_checks: dict) -> dict:
         ],
         "sweeps_per_s": N_SWEEPS / run_s,
         "fused_sweep_ms": fused_ms, "plain_sweep_ms": plain_ms,
-        "heldout_logp_per_dim": lp_dim,
+        "heldout_logp_per_dim": lp_dim, "idle_share": idle,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 4: path A, multi-chain
+# ---------------------------------------------------------------------------
+def phase_chains(headline: dict) -> dict:
+    import torch
+
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.ops import gaussian_assign as ga
+    from common_tpu_torch.ops import suffstat as ss
+    from common_tpu_torch.parallel import stack_states, unstack_state
+    from common_tpu_torch.utils import diagnostics
+
+    dev = torch.device("cuda")
+    data, heldout, hyper = headline["data"], headline["heldout"], headline["hyper"]
+    x, mask = data[0]
+    C = N_CHAINS
+    defn = st.model_definition(N, [models.niw(D)], k_max=K_MAX)
+    gen = rng(SEED + 2, dev).generator
+    t0 = time.perf_counter()
+    states = stack_states([
+        st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+        for _ in range(C)])
+    torch.cuda.synchronize()
+    log(f"chains: {C} CRP initialisations, stacked: {time.perf_counter() - t0:.2f} s, "
+        f"k_active {(states.counts > 0).sum(-1).tolist()}")
+
+    t0 = time.perf_counter()
+    states = blocked.sweep_chains(states, data, gen, fused=True)
+    torch.cuda.synchronize()
+    log(f"first sweep_chains(fused=True): {time.perf_counter() - t0:.2f} s")
+
+    ga.fused_gaussian_assign_chains.launches = 0
+    ss.fused_scatter_stats.launches = 0
+    sweep_ms, score_tr, lp_tr = [], [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(CHAIN_SWEEPS):
+        t0 = time.perf_counter()
+        states = blocked.sweep_chains(states, data, gen, fused=True)
+        torch.cuda.synchronize()
+        sweep_ms.append(1e3 * (time.perf_counter() - t0))
+        chains = [unstack_state(states, c) for c in range(C)]
+        score_tr.append(torch.stack([st.score_joint(s) for s in chains]))
+        lp_tr.append(torch.stack([st.heldout_logp(s, heldout).mean() for s in chains]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_all
+    launches = {"gaussian_assign_chains": ga.fused_gaussian_assign_chains.launches,
+                "suffstat": ss.fused_scatter_stats.launches}
+    log(f"{CHAIN_SWEEPS} sweeps of {C} chains with per-chain scores and held-out logp: "
+        f"{run_s:.3f} s, {C * CHAIN_SWEEPS / run_s:.3f} chain-sweeps/s; sweep_chains alone "
+        f"{[round(t, 1) for t in sweep_ms]} ms; launches {launches}")
+    require(launches["gaussian_assign_chains"] == CHAIN_SWEEPS,
+            f"multi-chain kernel launches {launches} != {CHAIN_SWEEPS} sweeps")
+    require(launches["suffstat"] == C * CHAIN_SWEEPS,
+            f"scatter launches {launches} != {C} chains x {CHAIN_SWEEPS} sweeps")
+
+    scores = torch.stack(score_tr).T.cpu().numpy()  # [C, T]
+    lps = torch.stack(lp_tr).T.cpu().numpy() / D
+    log(f"score_joint traces: {scores.tolist()}")
+    log(f"held-out logp/dim traces: {lps.tolist()}")
+    require(np.isfinite(scores).all() and np.isfinite(lps).all(), "non-finite chain traces")
+    require(states.counts.sum(-1).tolist() == [N] * C, "counts do not sum to N per chain")
+    for leaf, v in states.stats[0].items():
+        require(bool(torch.isfinite(v).all()), f"non-finite stats {leaf}")
+    for c in range(C):
+        s = unstack_state(states, c)
+        plain = blocked.restat(s, data, s.assignments)
+        require(torch.equal(s.counts, plain.counts), f"chain {c}: counts disagree with the plain restat")
+        for leaf in ("n", "sum_x", "sum_xxT"):
+            a, b = s.stats[0][leaf], plain.stats[0][leaf]
+            err = (a - b).abs().max().item()
+            bar = 1e-4 * b.abs().max().item()
+            require(err <= bar, f"chain {c}: {leaf} off the plain restat by {err:.3e} (bar {bar:.3e})")
+    log(f"per-chain stats within 1e-4 of the plain restat (n, sum_x, sum_xxT); "
+        f"k_active {(states.counts > 0).sum(-1).tolist()}")
+    rhat = float(diagnostics.split_rhat(lps))
+    ess = float(diagnostics.ess(scores - scores.mean(1, keepdims=True)))
+    log(f"split-R-hat of the held-out traces {rhat:.4f}, ESS of the centred score traces "
+        f"{ess:.2f} ({CHAIN_SWEEPS} sweeps: a smoke number, not a mixing claim)")
+
+    # the kernel against its plain version, on this sweep's own inputs
+    mu, minv, base, _ = blocked.chain_assign_inputs(states, data, gen)
+    seed = _seed(7, dev)
+    z = ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C)
+    exact = require_exact(chains_exact_check(z, x, mu, minv, base, seed, C),
+                          f"assign_chains on path A's inputs ({N}x{D}, K={K_MAX}, C={C}), "
+                          f"draw for draw")
+    k4 = cuda_ms(lambda: ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C), 3)
+    p4 = cuda_ms(lambda: ga.gaussian_assign_chains_plain(x, mu, minv, base, C, gen), 2)
+    log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: kernel {k4:.2f} ms, plain {p4:.2f} ms")
+    idle = profile_sweep(lambda: blocked.sweep_chains(states, data, gen, fused=True))
+    return {
+        "kernel": {"name": "gaussian_assign_chains", "route": "cuda",
+                   "source": "common_tpu_torch/csrc/gaussian_assign.cu",
+                   "replaces": "common_tpu/ops/gaussian_assign.py:214",
+                   "launches": launches["gaussian_assign_chains"],
+                   "max_abs_err": exact["shortfall"],
+                   "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
+                   "ms": k4, "plain_ms": p4},
+        "chain_sweeps_per_s": C * CHAIN_SWEEPS / run_s,
+        "sweep_chains_ms": float(np.median(sweep_ms)),
+        "split_rhat": rhat, "ess": ess,
+        "heldout_logp_per_dim": lps[:, -1].tolist(), "idle_share": idle,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5: path B, config 2 (Beta-Bernoulli DPMM + slice-sampled hypers)
+# ---------------------------------------------------------------------------
+def phase_config2() -> dict:
+    import torch
+
+    from common_tpu_torch import models, rng, scalar_functions as sf, state as st
+    from common_tpu_torch.kernels import blocked, slice_
+    from common_tpu_torch.ops import linear_assign as la
+    from common_tpu_torch.runner import runner
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    # bench.py:779-807: 8 planted Beta(0.5, 0.5) profiles over 64 binary columns
+    r = np.random.default_rng(SEED)
+    probs = r.beta(0.5, 0.5, size=(8, D2))
+    X_all = (r.random((N2 + HELDOUT, D2)) < probs[r.integers(0, 8, N2 + HELDOUT)])
+    x = torch.tensor(X_all[:N2], dtype=torch.float32, device=dev)
+    xh = torch.tensor(X_all[N2:], dtype=torch.float32, device=dev)
+    data = ((x, torch.ones(N2, device=dev)),)
+    heldout = ((xh, torch.ones(HELDOUT, device=dev)),)
+    log(f"config 2 data {N2}x{D2} binary + {HELDOUT} held out: {time.perf_counter() - t0:.2f} s")
+
+    defn = st.model_definition(N2, [models.bbv(D2)], k_max=K2)
+    hyper = {"alpha": np.ones(D2, np.float32), "beta": np.ones(D2, np.float32)}
+    gen = rng(SEED + 3, dev).generator
+    s0 = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+    bounds = {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (0.5, 50.0)}
+    hp_kw = {"specs": {0: {"alpha": bounds, "beta": bounds}},
+             "cluster": {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (1e-4, 1e4)}}
+    run = runner(defn, data, s0, [("assign_blocked_fused", {}), ("slice_hp", hp_kw)])
+
+    la.fused_linear_assign.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.run(gen, ITERS2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = la.fused_linear_assign.launches
+    log(f"runner.run({ITERS2} x [fused bbv sweep, slice_hp]): {run_s:.3f} s, "
+        f"{ITERS2 / run_s:.3f} iterations/s; linear_assign launches {launches}")
+    require(launches == ITERS2, f"linear kernel launches {launches} != {ITERS2} iterations")
+    scores = run.score_trace
+    log(f"score_joint trace: {scores.tolist()}")
+    log(f"k_active trace: {run.k_active_trace.tolist()}")
+    require(np.isfinite(scores).all(), "non-finite score_joint")
+    s = run.get_latent()
+    require(int(s.counts.sum()) == N2, "counts do not sum to N")
+    plain = blocked.restat(s, data, s.assignments)
+    require(torch.equal(s.counts, plain.counts), "counts disagree with the plain restat")
+    for leaf in ("n", "heads"):
+        require(torch.equal(s.stats[0][leaf], plain.stats[0][leaf]),
+                f"{leaf} disagrees with the plain restat")
+    a, b = s.hypers[0]["alpha"], s.hypers[0]["beta"]
+    log(f"hypers after {ITERS2} iterations: alpha in [{a.min():.3f}, {a.max():.3f}], "
+        f"beta in [{b.min():.3f}, {b.max():.3f}], CRP alpha {float(s.cluster_hp['alpha']):.4f}")
+
+    lp_dim = st.heldout_logp(s, heldout).mean().item() / D2
+    one = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=[hyper],
+                        assignment=np.zeros(N2, np.int32))
+    lp_one = st.heldout_logp(one, heldout).mean().item() / D2
+    log(f"held-out logp/dim ({HELDOUT} rows): {lp_dim:.5f}; one-cluster state {lp_one:.5f} "
+        f"(the JAX record, after its own chain, was -0.404: history, not a matched comparison)")
+    require(np.isfinite(lp_dim) and lp_dim > lp_one,
+            "held-out logp does not beat the one-cluster state")
+
+    # the pieces of one iteration, timed apart (median of 3)
+    sweep_ms, hp_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = blocked.sweep_fused(s, data, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s = slice_.hp(s, data, gen, **hp_kw)
+        torch.cuda.synchronize()
+        sweep_ms.append(1e3 * (t1 - t0))
+        hp_ms.append(1e3 * (time.perf_counter() - t1))
+    sweep_med, hp_med = float(np.median(sweep_ms)), float(np.median(hp_ms))
+    log(f"fused bbv sweep {sweep_med:.2f} ms, slice_hp {hp_med:.2f} ms "
+        f"(share of the iteration {hp_med / (hp_med + sweep_med):.3f})")
+    # what one slice target evaluation costs: with the host waiting on its
+    # result (as each loop test does), and queued back to back
+    lik, active = s.likelihoods()[0], s.counts > 0
+
+    def evaluate():
+        ml = lik.marginal_loglik(s.hypers[0], s.stats[0])
+        return torch.where(active, ml, torch.zeros_like(ml)).sum()
+
+    evaluate()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(evaluate() > 0)
+    waited_ms = 1e3 * (time.perf_counter() - t0) / 200
+    queued_ms = cuda_ms(evaluate, 200)
+    log(f"one slice target evaluation: {waited_ms:.3f} ms with the host waiting on it, "
+        f"{queued_ms:.3f} ms queued back to back; slice_hp is about "
+        f"{hp_med / waited_ms:.0f} evaluations")
+    hp_idle = profile_sweep(lambda: slice_.hp(s, data, gen, **hp_kw))
+
+    # the kernel against its plain version, on this path's own inputs
+    W, base, _ = blocked.linear_assign_inputs(s, data, gen)
+    seed = _seed(9, dev)
+    exact = require_exact(linear_exact_check(la.fused_linear_assign(x, W, base, seed),
+                                             x, W, base, seed),
+                          f"linear_assign on path B's inputs ({N2}x{D2}, K={K2}), draw for draw")
+    k3 = cuda_ms(lambda: la.fused_linear_assign(x, W, base, seed), 20)
+    p3 = cuda_ms(lambda: la.linear_assign_plain(x, W, base, gen), 20)
+    log(f"linear_assign {N2}x{D2} K={K2}: kernel {k3:.4f} ms, plain {p3:.4f} ms")
+    return {
+        "kernel": {"name": "linear_assign", "route": "cuda",
+                   "source": "common_tpu_torch/csrc/linear_assign.cu",
+                   "replaces": "common_tpu/ops/linear_assign.py:67",
+                   "launches": launches, "max_abs_err": exact["shortfall"],
+                   "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
+                   "ms": k3, "plain_ms": p3},
+        "iterations_per_s": ITERS2 / run_s,
+        "fused_sweep_ms": sweep_med, "slice_hp_ms": hp_med, "slice_hp_idle_share": hp_idle,
+        "slice_eval_ms": waited_ms, "slice_eval_queued_ms": queued_ms,
+        "heldout_logp_per_dim": lp_dim, "one_cluster_logp_per_dim": lp_one,
     }
 
 
@@ -439,13 +839,18 @@ def main() -> int:
     try:
         env = phase_environment()
         checks = phase_kernels()
-        result = phase_main_path(checks)
+        headline = headline_data()
+        result = phase_main_path(checks, headline)
+        chains = phase_chains(headline)
+        del headline
+        config2 = phase_config2()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(json.dumps({"kernels": result["kernels"]}))
-    log(json.dumps({"main_path": {k: v for k, v in result.items() if k != "kernels"},
+    kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel")]
+    log(json.dumps({"main_path": result, "chains": chains, "config2": config2,
                     "card": env["card"]}))
+    log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
 """common_tpu_torch — the PyTorch / CUDA port of `common_tpu`.
 
 A second package beside the JAX one, which stays the reference it is held
-against. This slice carries the main path: a Dirichlet-process mixture
-with one NIW feature, swept by blocked (uncollapsed) Gibbs, with the two
-Pallas kernels of that path rewritten by hand in CUDA C++ for Hopper
-(`csrc/`, built with nvcc at first use).
+against. It carries the main path (a Dirichlet-process mixture with one
+NIW feature, swept by blocked (uncollapsed) Gibbs), several such chains
+swept together, and the Beta-Bernoulli config-2 model with slice-sampled
+hypers. The JAX package's four Pallas kernels are rewritten by hand in
+CUDA C++ for Hopper (`csrc/`, built with nvcc at first use).
 
 Module map (each keeps its counterpart's name in `common_tpu`):
-  - validator.py, runtime_types.py, rng.py, models.py, state.py, runner.py
-  - likelihoods/  base + niw
+  - validator.py, runtime_types.py, rng.py, models.py, state.py, runner.py,
+    scalar_functions.py
+  - likelihoods/  base, niw, bbv
   - ops/          the CUDA kernels' wrappers and their plain versions
-  - kernels/      blocked.py (sweep, sweep_fused)
+  - kernels/      blocked.py (sweep, sweep_fused, sweep_chains), slice_.py (hp)
+  - parallel/     chains.py (stack_states, unstack_state, vmap_sweep)
+  - utils/        diagnostics.py (ess, split_rhat, summarize_traces)
   - convert.py    (new) state to and from numpy leaves
 
 Precision: the sampler runs in fp32. Reduced-precision products bias it

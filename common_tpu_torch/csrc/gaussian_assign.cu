@@ -3,10 +3,18 @@
 //
 //     z_n = argmax_k [ base_k - 1/2 ||B_k (x_n - mu_k)||^2 + Gumbel_nk ].
 //
-// Replaces the Pallas kernel common_tpu/ops/gaussian_assign.py
-// `_assign_kernel` (called by `fused_gaussian_assign`). Like it, the [N, K]
-// score and noise tables never reach device memory: X is read once and z
-// written once.
+// Replaces the Pallas kernels common_tpu/ops/gaussian_assign.py
+// `_assign_kernel` (called by `fused_gaussian_assign`) and
+// `_assign_chains_kernel` (called by `fused_gaussian_assign_chains`). Like
+// them, the [N, K] score and noise tables never reach device memory: X is
+// read once and z written once.
+//
+// The multi-chain form is the same kernel instantiated with kChains: C
+// chains share X and own consecutive runs of K slots of mu, B and base
+// (chain c owns slots cK .. cK + K - 1). The block loops over all C*K slots
+// with its row tile still in shared memory, resets its running (max,
+// argmax) at each chain's first slot and writes z[c, row] at its last, as
+// the Pallas kernel does; so X is read once for all chains.
 //
 // What bounds it on Hopper: N*K*D^2 multiply-adds (4.3e12 at 1M x 256,
 // K = 64), in fp32 FMA on the CUDA cores -- no TF32, no tensor cores, since
@@ -31,8 +39,10 @@
 // in Pallas and torch.argmax.
 //
 // Gumbel noise: Philox4x32-10 keyed on the per-sweep seed with counter
-// (row, k), so the draws do not depend on the tiling. The seed is read from
-// device memory, so the host never waits for the device to draw it.
+// (row, k, c), k the slot within chain c, so the draws do not depend on the
+// tiling and chain 0 draws exactly the single-chain kernel's noise. The seed
+// is read from device memory, so the host never waits for the device to
+// draw it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -76,11 +86,14 @@ __device__ __forceinline__ void fetch_panel(const float* __restrict__ binv, int 
   }
 }
 
+// K is the number of slots per chain; C the number of chains (1 unless
+// kChains). z is [C, N].
+template <bool kChains>
 __global__ void __launch_bounds__(kThreads, 1)
 gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                        const float* __restrict__ binv, const float* __restrict__ base,
                        const int* __restrict__ seed_ptr, int* __restrict__ z, int N,
-                       int D, int K) {
+                       int D, int K, int C) {
   extern __shared__ float4 smem4[];
   const int Dp = round_up(D, kPanel);
   float* xt = reinterpret_cast<float*>(smem4);  // [Dp][kLd], row tile transposed
@@ -95,7 +108,7 @@ gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu
   const int n_chunks = (D + kChunk - 1) / kChunk;
   const int n_panels = Dp / kPanel;
   const int per_cluster = n_chunks * n_panels;
-  const int T = K * per_cluster;
+  const int T = C * K * per_cluster;
 
   for (int idx = tid; idx < kTileN * Dp; idx += kThreads) {
     const int r = idx / Dp, j = idx - r * Dp;
@@ -114,7 +127,7 @@ gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu
   float q[8];
 
   for (int t = 0; t < T; ++t) {
-    const int k = t / per_cluster;
+    const int k = t / per_cluster;  // slot over all chains
     const int rem = t - k * per_cluster;
     const int p = rem % n_panels;
     const bool first_of_cluster = rem == 0;
@@ -181,22 +194,51 @@ gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu
       float quad = q[0];
 #pragma unroll
       for (int a = 1; a < 8; ++a) quad = tn == a ? q[a] : quad;
+      int c = 0, kc = k;  // chain, and slot within it
+      if constexpr (kChains) {
+        c = k / K;
+        kc = k - c * K;
+      }
       if (tn < 8 && my_row < N) {
         const float lp = base[k] - 0.5f * quad +
-                         philox::gumbel(seed, static_cast<uint32_t>(my_row), static_cast<uint32_t>(k));
+                         philox::gumbel(seed, static_cast<uint32_t>(my_row), static_cast<uint32_t>(kc),
+                                        static_cast<uint32_t>(c));
         if (lp > best) {
           best = lp;
-          arg = k;
+          arg = kc;
+        }
+      }
+      if constexpr (kChains) {
+        if (kc == K - 1) {  // this chain's last slot: emit, then start the next chain
+          if (tn < 8 && my_row < N) z[static_cast<size_t>(c) * N + my_row] = arg;
+          best = -INFINITY;
+          arg = 0;
         }
       }
     }
   }
-  if (tn < 8 && my_row < N) z[my_row] = arg;
+  if constexpr (!kChains) {
+    if (tn < 8 && my_row < N) z[my_row] = arg;
+  }
 }
 
 size_t smem_bytes(int D) {
   const size_t Dp = static_cast<size_t>(round_up(D, kPanel));
   return sizeof(float) * (Dp * kLd + static_cast<size_t>(kPanel) * kLd + Dp);
+}
+
+template <bool kChains>
+int launch(const float* X, const float* mu, const float* binv, const float* base, const int* seed,
+           int* z, int N, int D, int K, int C, void* stream) {
+  const size_t bytes = smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(gaussian_assign_kernel<kChains>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (N + kTileN - 1) / kTileN;
+  gaussian_assign_kernel<kChains><<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      X, mu, binv, base, seed, z, N, D, K, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -218,15 +260,15 @@ int gaussian_assign_max_dim(void) {
 // code of the launch (0 on success).
 int gaussian_assign_launch(const float* X, const float* mu, const float* binv, const float* base,
                            const int* seed, int* z, int N, int D, int K, void* stream) {
-  const size_t bytes = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(gaussian_assign_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (N + kTileN - 1) / kTileN;
-  gaussian_assign_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      X, mu, binv, base, seed, z, N, D, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(X, mu, binv, base, seed, z, N, D, K, 1, stream);
+}
+
+// The multi-chain form: mu [C*K, D], binv [C*K, D, D], base [C*K] chain-major,
+// z [C, N] int32 output; K is the number of slots per chain.
+int gaussian_assign_chains_launch(const float* X, const float* mu, const float* binv,
+                                  const float* base, const int* seed, int* z, int N, int D, int K,
+                                  int C, void* stream) {
+  return launch<true>(X, mu, binv, base, seed, z, N, D, K, C, stream);
 }
 
 }  // extern "C"

@@ -31,9 +31,11 @@ __device__ __forceinline__ float uniform_open(uint32_t bits) {
   return fmaxf(u, 1e-7f);
 }
 
-// Standard Gumbel draw keyed on (seed, a, b).
-__device__ __forceinline__ float gumbel(uint32_t seed, uint32_t a, uint32_t b) {
-  const uint4 bits = philox4x32_10(make_uint4(a, b, 0u, 0u), make_uint2(seed, 0x5EEDu));
+// Standard Gumbel draw keyed on (seed, a, b, c): counter (a, b, c, 0). The
+// assignment kernels use a = row, b = cluster within its chain, c = chain,
+// so chain 0 (and every single-chain launch) draws the same stream.
+__device__ __forceinline__ float gumbel(uint32_t seed, uint32_t a, uint32_t b, uint32_t c = 0u) {
+  const uint4 bits = philox4x32_10(make_uint4(a, b, c, 0u), make_uint2(seed, 0x5EEDu));
   return -logf(-logf(uniform_open(bits.x)));
 }
 

@@ -1,1 +1,1 @@
-"""MCMC kernels (port of `common_tpu/kernels/`); this slice carries `blocked`."""
+"""MCMC kernels (port of `common_tpu/kernels/`): `blocked` and `slice_`."""

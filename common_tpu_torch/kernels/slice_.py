@@ -1,0 +1,137 @@
+"""Slice sampling of hyperparameters (port of `common_tpu/kernels/slice_.py`).
+
+Neal (2003): stepping-out, then shrinkage. Reference analog:
+`kernels:microscopes/kernels/slice.pyx`, ``slice.hp(state, rng, hparams)``,
+which resamples feature and cluster hyperparameters under continuous
+priors. The targets are the package's own scores (`marginal_loglik`, the
+EPPF).
+
+The JAX package runs each loop as a bounded `lax.while_loop`. Here each
+loop is a Python loop whose test reads one device scalar on the host, so
+every target evaluation that decides a branch waits for the device: an
+update costs a few small synchronised steps. The caps (16 step-outs a
+side, 64 shrinks, the update a no-op when the shrinks run out) and the
+sequential coordinate scan over vector hypers are kept, so the sampler is
+the JAX package's. All values stay on the state's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict
+
+import torch
+
+from common_tpu_torch import state as state_mod
+from common_tpu_torch.rng import uniform_open
+from common_tpu_torch.state import MixtureState
+
+_MAX_STEPOUT = 16
+_MAX_SHRINK = 64
+
+
+def slice_sample(generator: torch.Generator, x0, logf: Callable, w: float = 1.0,
+                 lower: float = -math.inf, upper: float = math.inf) -> torch.Tensor:
+    """One univariate slice-sampling update of the target density exp(logf).
+
+    Stepping-out with width w (at most _MAX_STEPOUT steps a side, clipped
+    to [lower, upper]), then shrinkage (at most _MAX_SHRINK proposals; when
+    they run out x0 is returned, a no-op that keeps detailed balance).
+    x0 and the result are float32 0-d tensors on the generator's device;
+    logf maps such a tensor to a 0-d tensor.
+    """
+    dev = generator.device
+    x0 = torch.as_tensor(x0, device=dev).to(torch.float32)
+    y = logf(x0) + torch.log(uniform_open((), generator))  # logf(x0) - Exp(1)
+    u = uniform_open((), generator)
+    L0 = torch.clamp(x0 - u * w, min=lower)
+    R0 = torch.clamp(L0 + w, max=upper)
+
+    def step_out(edge, step):
+        grow = bool(logf(edge) > y)
+        for _ in range(_MAX_STEPOUT):
+            if not grow:
+                break
+            new_edge = torch.clamp(edge + step, lower, upper)
+            grow = bool((logf(new_edge) > y) & (new_edge != edge))
+            edge = new_edge
+        return edge
+
+    lo, hi = step_out(L0, -w), step_out(R0, w)
+    for _ in range(_MAX_SHRINK):
+        xp = lo + uniform_open((), generator) * (hi - lo)
+        if bool(logf(xp) >= y):
+            return xp
+        left = xp < x0
+        lo = torch.where(left, xp, lo)
+        hi = torch.where(left, hi, xp)
+    return x0
+
+
+def hp(state: MixtureState, data, generator: torch.Generator,
+       specs: Dict[int, Dict[str, Dict[str, Any]]],
+       cluster: Dict[str, Any] | None = None) -> MixtureState:
+    """Slice-resample hyperparameters (slice.hp).
+
+    specs: {fid: {param: {'prior': logp fn, 'w': width, 'bounds': (lo, hi)}}}
+    for scalar hypers, or [d] vector hypers (bbv's alpha and beta), which
+    are updated coordinate by coordinate as a sequential Gibbs scan, each
+    coordinate conditioned on the others' updated values. cluster:
+    optional {'prior': fn, 'w': float, 'bounds': (lo, hi)} for the CRP
+    concentration alpha. Features and parameters go in sorted order.
+
+    With the blocked (uncollapsed) sweep keep the bounds moderate (Beta
+    hypers >= 0.5, say): hypers fitted to mixed early-sweep stats otherwise
+    make empty-slot prior draws so extreme that the truncated sampler
+    collapses to one cluster.
+    """
+    del data  # scored from the suffstats alone
+    active = state.counts > 0
+    liks = state.likelihoods()
+    new_hypers = list(state.hypers)
+    for fid, params in sorted(specs.items()):
+        lik = liks[fid]
+        hyper = dict(new_hypers[fid])
+        stats = state.stats[fid]
+
+        def score(h):
+            ml = lik.marginal_loglik(h, stats)
+            return torch.where(active, ml, torch.zeros_like(ml)).sum()
+
+        for pname, spec in sorted(params.items()):
+            prior_fn = spec["prior"]
+            lo, hi = spec.get("bounds", (-math.inf, math.inf))
+            width = spec.get("w", 1.0)
+            x0 = hyper[pname]
+            if x0.dim() == 0:
+                def logf(v):
+                    return prior_fn(v) + score({**hyper, pname: v})
+
+                hyper[pname] = slice_sample(generator, x0, logf, w=width, lower=lo, upper=hi)
+                continue
+            coords = torch.arange(x0.shape[0], device=x0.device)
+            vec = x0
+            for c in range(x0.shape[0]):
+                def logf_c(v):
+                    return prior_fn(v) + score({**hyper, pname: torch.where(coords == c, v, vec)})
+
+                new_v = slice_sample(generator, vec[c], logf_c, w=width, lower=lo, upper=hi)
+                vec = torch.where(coords == c, new_v.to(vec.dtype), vec)
+            hyper[pname] = vec
+        new_hypers[fid] = hyper
+    state = dataclasses.replace(state, hypers=tuple(new_hypers))
+
+    if cluster is not None and not state.fixed:
+        prior_fn = cluster["prior"]
+        lo, hi = cluster.get("bounds", (1e-6, math.inf))
+
+        def logf_alpha(a):
+            s = dataclasses.replace(state, cluster_hp={"alpha": a})
+            return prior_fn(a) + state_mod.score_assignment(s)
+
+        alpha = state.cluster_hp["alpha"]
+        new_alpha = slice_sample(generator, alpha, logf_alpha, w=cluster.get("w", 1.0),
+                                 lower=lo, upper=hi)
+        state = dataclasses.replace(state, cluster_hp={"alpha": new_alpha.to(alpha.dtype)})
+    return state

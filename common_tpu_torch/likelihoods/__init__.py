@@ -1,6 +1,6 @@
 """Likelihood registry (port of `common_tpu/likelihoods/__init__.py`).
 
-This slice registers `niw` only; see `base.py` for the interface.
+This port registers `niw` and `bbv`; see `base.py` for the interface.
 """
 
 from common_tpu_torch.likelihoods.base import (  # noqa: F401
@@ -9,4 +9,5 @@ from common_tpu_torch.likelihoods.base import (  # noqa: F401
     names,
     register,
 )
+from common_tpu_torch.likelihoods.bbv import bbv  # noqa: F401
 from common_tpu_torch.likelihoods.niw import niw  # noqa: F401

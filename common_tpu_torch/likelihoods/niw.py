@@ -106,17 +106,23 @@ class NIW(base.Likelihood):
 
     # -- posterior NIW parameters from suffstats (broadcasts over batch) --
     def posterior_hyper(self, hyper, stats):
+        """Posterior hypers, broadcast over the stats' batch axes.
+
+        The hypers may carry batch axes of their own that broadcast against
+        the stats' (kappa [C, 1] and mu0 [C, 1, D] against n [C, K] for C
+        chains), so each scalar hyper is lifted to its leaf's rank.
+        """
         mu0, kappa, psi, nu = (
             hyper["mu0"], hyper["kappa"], hyper["psi"], hyper["nu"],
         )
         n = stats["n"]
         kappa_n = kappa + n
-        mu_n = (kappa * mu0 + stats["sum_x"]) / kappa_n[..., None]
+        mu_n = (kappa[..., None] * mu0 + stats["sum_x"]) / kappa_n[..., None]
         nu_n = nu + n
         psi_n = (
             psi
             + stats["sum_xxT"]
-            + kappa * _outer(mu0, mu0)
+            + kappa[..., None, None] * _outer(mu0, mu0)
             - kappa_n[..., None, None] * _outer(mu_n, mu_n)
         )
         # Symmetrize exactly and add a relative diagonal jitter (1e-6 of the
@@ -219,6 +225,51 @@ class NIW(base.Likelihood):
         chol2 = _chol(sigma + jitter)
         chol = torch.where(bad[..., None, None], chol2, chol)
         return {"mu": mu, "cov_chol": chol}
+
+    def sample_params_prec(self, generator, hyper, stats):
+        """theta = (mu, precision, log|Sigma|, precision square root) ~ NIW posterior.
+
+        The same posterior draw as `sample_params`: it consumes the
+        generator in the same order and shapes (the Bartlett normals, the
+        chi-square draws, then the mean's normals), so one generator state
+        gives the same mu from both. With Sigma = M M^T and M = L A^-T,
+
+            minv = A^T L^-1,   Sigma^-1 = minv^T minv,
+            log|Sigma| = 2 sum log diag L - 2 sum log |diag A|,
+
+        so the draw costs one Cholesky (of psi_n) and triangular solves; no
+        canonical factor of Sigma is needed by the consumers, which score
+        through ||minv (x - mu)||^2 (the multi-chain assignment kernel) or
+        the expanded quadratic form (`kernels.blocked._chain_score_table`).
+        Batched over any leading axes of the stats. fp32 throughout: the
+        expanded form's cancellation amplifies any error in prec.
+        """
+        d = hyper["mu0"].shape[-1]
+        post = self.posterior_hyper(hyper, stats)
+        mu_n, kappa_n, psi_n, nu_n = (
+            post["mu0"], post["kappa"], post["psi"], post["nu"],
+        )
+        batch = psi_n.shape[:-2]
+        kw = dict(generator=generator, device=psi_n.device, dtype=psi_n.dtype)
+        normals = torch.randn((*batch, d, d), **kw)
+        i = torch.arange(d, dtype=psi_n.dtype, device=psi_n.device)
+        chi_df = torch.clamp(nu_n[..., None] - i, min=1e-3)
+        chi = 2.0 * standard_gamma(chi_df / 2.0, generator)
+        A = torch.tril(normals, -1) + torch.diag_embed(torch.sqrt(chi))
+        z = torch.randn((*batch, d, 1), **kw)
+        L = _chol(psi_n)
+        Li = torch.linalg.solve_triangular(L, _eye_like(L).expand_as(L), upper=False)
+        minv = A.transpose(-1, -2) @ Li
+        prec = minv.transpose(-1, -2) @ minv
+        prec = 0.5 * (prec + prec.transpose(-1, -2))
+        logdet = 2.0 * (
+            torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+            - torch.log(torch.diagonal(A, dim1=-2, dim2=-1).abs()).sum(-1)
+        )
+        # mu = mu_n + M z / sqrt(kappa_n), M z = L (A^-T z)
+        y = torch.linalg.solve_triangular(A.transpose(-1, -2), z, upper=True)
+        mu = mu_n + (L @ y)[..., 0] / torch.sqrt(kappa_n)[..., None]
+        return {"mu": mu, "prec": prec, "logdet": logdet, "minv": minv}
 
     def logpdf_batch(self, theta, X, mask):
         """[N, K] Gaussian log-likelihood table, one matmul per cluster.

@@ -1,8 +1,8 @@
 """User-facing model descriptors (port of `common_tpu/models.py`).
 
 The reference's ``common:microscopes/models.py`` pairs a likelihood with
-default hyperparameters and the runtime type of its data column. This slice
-carries the `niw` descriptor only.
+default hyperparameters and the runtime type of its data column. The port
+carries the `niw` and `bbv` descriptors.
 """
 
 from __future__ import annotations
@@ -55,3 +55,18 @@ def niw(dim: int) -> model_descriptor:
         "nu": float(dim),
     }
     return model_descriptor(_lik.niw, hyper, rt.vector(rt.TYPE_F32, dim))
+
+
+def bbv(d: int) -> model_descriptor:
+    """d independent Beta-Bernoulli binary columns as one vector feature.
+
+    The reference's "d scalar bb features" pattern (config-2 binary feature
+    matrices): identical posterior, per-column (alpha, beta) hypers,
+    scored by one product.
+    """
+    validator.validate_positive(d, "bbv columns")
+    return model_descriptor(
+        _lik.bbv,
+        {"alpha": np.ones(d, np.float32), "beta": np.ones(d, np.float32)},
+        rt.vector(rt.TYPE_B, d),
+    )

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels (`csrc/`) at first use and load them.
 
-`nvcc` compiles every source in `csrc/` into one shared library with a
-plain C interface, which ctypes loads. Nothing includes PyTorch's headers,
-so the build takes seconds. The library goes into `common_tpu_torch/_build/`
-under a name keyed by a hash of the sources, so an edited source builds
-anew and an unchanged one is reused. A failed build raises.
+`nvcc` compiles each `.cu` source in `csrc/` to an object file, all of them
+at once in parallel processes, and links the objects into one shared
+library with a plain C interface, which ctypes loads. Nothing includes
+PyTorch's headers, so the build takes seconds. The library goes into
+`common_tpu_torch/_build/` under a name keyed by a hash of the sources, so
+an edited source builds anew and an unchanged one is reused. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -57,9 +60,20 @@ def _declare(lib):
     lib.gaussian_assign_launch.restype = ci
     lib.gaussian_assign_max_dim.argtypes = []
     lib.gaussian_assign_max_dim.restype = ci
+    lib.gaussian_assign_chains_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.gaussian_assign_chains_launch.restype = ci
     lib.scatter_stats_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.scatter_stats_launch.restype = ci
+    lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.linear_assign_launch.restype = ci
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; the (returncode, output) of each, in order."""
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        procs = list(pool.map(lambda c: subprocess.run(c, capture_output=True, text=True), cmds))
+    return [(p.returncode, p.stdout + p.stderr) for p in procs]
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,20 +83,29 @@ def library():
     out = BUILD_DIR / f"libcommon_tpu_torch_{_digest()}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-            "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC),
-            "-o", str(tmp), *[str(s) for s in sorted(CSRC.glob("*.cu"))],
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        sources = sorted(CSRC.glob("*.cu"))
+        objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        compile_cmds = [
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+             "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objects)
         ]
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        results = _run_all(compile_cmds)
+        if all(rc == 0 for rc, _ in results):
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+            results += _run_all([link])
         build_seconds = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        log = "".join(text for _, text in results)
+        out.with_suffix(".log").write_text(log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        failed = [rc for rc, _ in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, out)
     return _declare(ctypes.CDLL(str(out)))
 

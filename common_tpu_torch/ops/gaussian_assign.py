@@ -4,15 +4,23 @@
 
 `fused_gaussian_assign` replaces the Pallas kernel
 `common_tpu/ops/gaussian_assign.py:fused_gaussian_assign`
-(`_assign_kernel`). Like it, the [N, K] score and noise tables never reach
-device memory: X is read once and z written once. The CUDA kernel
+(`_assign_kernel`), and `fused_gaussian_assign_chains` replaces its
+multi-chain form of the same name (`_assign_chains_kernel`): C chains
+share X, chain c owns slots cK .. cK + K - 1 of mu, B and base, and the
+argmax is taken within each chain, z [C, N]. Both are one CUDA kernel,
+instantiated with and without the chain axis. Like the Pallas kernels,
+the [N, K] score and noise tables never reach device memory: X is read
+once for all chains and z written once. The CUDA kernel
 (`csrc/gaussian_assign.cu`) is bound by N*K*D^2 fp32 multiply-adds on the
 CUDA cores (no TF32, no tensor cores), which it feeds from an 8 x 8
 register tile per thread; it streams each B_k through shared memory in
 panels, because one B_k at D = 256 (256 KB) does not fit a block's
 227 KB. Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
-counter (row, k), so the draws do not depend on the tiling. The seed is
-read from a device int32 tensor, so the host never waits for it.
+counter (row, k, c), k the slot within chain c, so the draws do not depend
+on the tiling and chain 0 draws the single-chain stream. The seed is read
+from a device int32 tensor, so the host never waits for it. The Pallas
+kernels' tiling arguments (`tile_n`, `k_tile`, `interpret`) and their
+padding of K exist for the TPU's VMEM tiling and have no counterpart here.
 
 Inputs
   X     [N, D]     rows
@@ -45,6 +53,17 @@ def gaussian_assign_plain(X, mu, binv, base, generator: torch.Generator) -> torc
     """Plain version: the score table, Gumbel noise from `generator`, argmax."""
     logp = gaussian_scores(X, mu, binv, base)
     return gumbel_argmax(logp, generator).to(torch.int32)
+
+
+def gaussian_assign_chains_plain(X, mu, binv, base, n_chains: int,
+                                 generator: torch.Generator) -> torch.Tensor:
+    """Plain version of the multi-chain draw: z [C, N].
+
+    The score table of every chain's slots, Gumbel noise from `generator`,
+    and the argmax within each chain.
+    """
+    logp = gaussian_scores(X, mu, binv, base).reshape(X.shape[0], n_chains, -1)
+    return gumbel_argmax(logp, generator).T.contiguous().to(torch.int32)
 
 
 _MASK32 = 0xFFFFFFFF
@@ -80,31 +99,33 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int) -> torch.Tensor:
-    """[len(rows), k] float32: the Gumbel noise the CUDA kernel adds, in plain ops.
+def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int, chain: int = 0) -> torch.Tensor:
+    """[len(rows), k] float32: the Gumbel noise the CUDA kernels add, in plain ops.
 
-    Philox4x32-10 keyed on (seed, 0x5EED) with counter (row, cluster, 0, 0),
-    the uniform from the top 24 bits of the first word, floored at 1e-7.
-    `rows` are global row indices, so any slice of X can be checked draw for
-    draw against the kernel.
+    Philox4x32-10 keyed on (seed, 0x5EED) with counter (row, cluster,
+    chain, 0), the uniform from the top 24 bits of the first word, floored
+    at 1e-7. `rows` are global row indices, so any slice of X can be checked
+    draw for draw against a kernel; `cluster` counts from 0 within `chain`.
     """
     r = rows.to(torch.int64)[:, None].expand(-1, k)
     c = torch.arange(k, device=rows.device, dtype=torch.int64)[None, :].expand_as(r)
     zero = torch.zeros_like(r)
     key0 = seed.reshape(()).to(torch.int64) & _MASK32
-    bits = philox4x32_10((r, c, zero, zero), (key0, 0x5EED))[0]
+    bits = philox4x32_10((r, c, zero + chain, zero), (key0, 0x5EED))[0]
     u = ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
     return -torch.log(-torch.log(u))
 
 
-def philox_scores(X, mu, binv, base, seed: torch.Tensor, row0: int = 0) -> torch.Tensor:
-    """[N, K] scores plus the kernel's own noise for rows row0 .. row0 + N - 1.
+def philox_scores(X, mu, binv, base, seed: torch.Tensor, row0: int = 0,
+                  chain: int = 0) -> torch.Tensor:
+    """[N, K] scores plus a kernel's own noise for rows row0 .. row0 + N - 1.
 
     Its argmax is the draw the CUDA kernel makes with `seed`, up to fp32
-    rounding, so the kernel can be checked row for row.
+    rounding, so the kernel can be checked row for row. For the multi-chain
+    kernel, pass chain c's slots of mu, binv and base and `chain=c`.
     """
     rows = torch.arange(row0, row0 + X.shape[0], device=X.device)
-    return gaussian_scores(X, mu, binv, base) + philox_gumbel(seed, rows, mu.shape[0])
+    return gaussian_scores(X, mu, binv, base) + philox_gumbel(seed, rows, mu.shape[0], chain)
 
 
 def _check(X, mu, binv, base, seed) -> None:
@@ -123,6 +144,23 @@ def _check(X, mu, binv, base, seed) -> None:
             raise ValueError(f"X is on {X.device} but {name} is on {t.device}")
 
 
+def _launch_checks(X, mu, binv, base, seed, what: str):
+    """Device, type, layout and width checks before a launch; the kernel library."""
+    if X.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {X.device}")
+    for name, t in (("X", X), ("mu", mu), ("binv", binv), ("base", base)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got {t.dtype}")
+    if seed.dtype != torch.int32:
+        raise ValueError(f"seed must be int32, got {seed.dtype}")
+    lib = _build.library()
+    with torch.cuda.device(X.device):
+        max_dim = lib.gaussian_assign_max_dim()
+    if X.shape[1] > max_dim:
+        raise ValueError(f"{what} supports D <= {max_dim}, got {X.shape[1]}")
+    return lib
+
+
 def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
                           base: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     """Sample z_n ~ Cat(softmax_k(base_k - 1/2 Mahalanobis^2)) for all rows.
@@ -135,20 +173,9 @@ def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
     if X.device.type == "cpu":
         g = torch.Generator().manual_seed(int(seed.reshape(())))
         return gaussian_assign_plain(X, mu, binv, base, g)
-    if X.device.type != "cuda":
-        raise ValueError(f"fused_gaussian_assign: no kernel for device {X.device}")
-    for name, t in (("X", X), ("mu", mu), ("binv", binv), ("base", base)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got {t.dtype}")
-    if seed.dtype != torch.int32:
-        raise ValueError(f"seed must be int32, got {seed.dtype}")
+    lib = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign")
     N, D = X.shape
     K = mu.shape[0]
-    lib = _build.library()
-    with torch.cuda.device(X.device):
-        max_dim = lib.gaussian_assign_max_dim()
-    if D > max_dim:
-        raise ValueError(f"fused_gaussian_assign supports D <= {max_dim}, got {D}")
     z = torch.empty(N, device=X.device, dtype=torch.int32)
     if N == 0:
         return z
@@ -164,3 +191,40 @@ def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
 
 
 fused_gaussian_assign.launches = 0
+
+
+def fused_gaussian_assign_chains(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
+                                 base: torch.Tensor, seed: torch.Tensor,
+                                 n_chains: int) -> torch.Tensor:
+    """Per-chain draws for C chains sharing X: z [C, N] int32.
+
+    mu [C*K, D], binv [C*K, D, D] (any square B_k, not only triangular),
+    base [C*K], chain-major. CUDA: float32 inputs and an int32 seed,
+    contiguous; launches the chain form of `csrc/gaussian_assign.cu`. CPU:
+    `gaussian_assign_chains_plain`, its noise drawn from a generator seeded
+    with `seed`. Any other device raises.
+    """
+    _check(X, mu, binv, base, seed)
+    if n_chains < 1 or mu.shape[0] % n_chains:
+        raise ValueError(f"mu rows {mu.shape[0]} must be n_chains * K, n_chains={n_chains}")
+    if X.device.type == "cpu":
+        g = torch.Generator().manual_seed(int(seed.reshape(())))
+        return gaussian_assign_chains_plain(X, mu, binv, base, n_chains, g)
+    lib = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign_chains")
+    N, D = X.shape
+    K = mu.shape[0] // n_chains
+    z = torch.empty((n_chains, N), device=X.device, dtype=torch.int32)
+    if N == 0:
+        return z
+    with torch.cuda.device(X.device):
+        err = lib.gaussian_assign_chains_launch(
+            X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
+            seed.data_ptr(), z.data_ptr(), N, D, K, n_chains,
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    _build.check(err, "gaussian_assign_chains_launch")
+    fused_gaussian_assign_chains.launches += 1
+    return z
+
+
+fused_gaussian_assign_chains.launches = 0

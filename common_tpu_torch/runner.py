@@ -4,12 +4,15 @@ Reference analog: the `runner` layer of the reference ecosystem
 (`kernels:microscopes/kernels/runner.py`): takes a model definition, a
 dataview, an initialized latent state and a *kernel config* -- an ordered
 list like ``[('assign_blocked_fused', {})]`` -- and applies each kernel once
-per iteration.
+per iteration. A mix such as
+``[('assign_blocked_fused', {}), ('slice_hp', {'specs': ..., 'cluster': ...})]``
+sweeps the rows, then slice-samples the hyperparameters.
 
 The JAX package runs the loop as one `lax.scan`; here it is a Python loop.
 The per-sweep traces (joint score, active-cluster count, counts and,
 optionally, assignments) stay on the device until the end of `run`, so the
-loop never waits on the device between sweeps.
+loop itself never waits on the device between sweeps (the slice sampler
+does, inside `slice_hp`: see `kernels/slice_.py`).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
-from common_tpu_torch.kernels import blocked
+from common_tpu_torch.kernels import blocked, slice_
 from common_tpu_torch.state import MixtureState
 
 
@@ -30,6 +33,7 @@ from common_tpu_torch.state import MixtureState
 KERNELS: Dict[str, Callable] = {
     "assign_blocked": blocked.sweep,
     "assign_blocked_fused": blocked.sweep_fused,
+    "slice_hp": slice_.hp,  # kw: specs, cluster
 }
 
 

@@ -140,12 +140,17 @@ def test_dirichlet_weights_mean():
 
 
 def test_sweep_fused_rejects_other_models():
+    """bbv now runs through sweep_fused (the linear assignment kernel's plain
+    version on the CPU); any model other than a single niw or bbv raises."""
     defn, data, _ = _recovery_problem()
     s = st.initialize(defn, data, rng(0).generator)
     g = rng(1).generator
-    with pytest.raises(ValueError, match="not ported"):
-        blocked.sweep_fused(dataclasses.replace(s, lik_names=("bbv",)), data, g)
-    with pytest.raises(ValueError, match="single niw"):
+    B = (data[0][0] > 0).to(torch.float32)
+    bdata = ((B, torch.ones(600)),)
+    sb = st.initialize(st.model_definition(600, [models.bbv(2)], k_max=32), bdata, g)
+    out = blocked.sweep_fused(sb, bdata, g)
+    assert out.lik_names == ("bbv",) and int(out.counts.sum()) == 600
+    with pytest.raises(ValueError, match="single niw or bbv"):
         blocked.sweep_fused(dataclasses.replace(s, lik_names=("niw", "niw")), data, g)
 
 

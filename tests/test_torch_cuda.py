@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from common_tpu_torch.ops import gaussian_assign as ga
+from common_tpu_torch.ops import linear_assign as la
 from common_tpu_torch.ops import suffstat as ss
 
 torch.set_num_threads(2)
@@ -45,11 +46,60 @@ def test_cuda_assign_kernel_matches_plain(cuda_device, n, d, k, sep):
     t = _assign_problem(n, d, k, sep, 5, cuda_device)
     seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
     z = ga.fused_gaussian_assign(*t, seed).long()
-    v = ga.philox_scores(*t, seed)
+    _assert_exact(z, ga.philox_scores(*t, seed))
+
+
+def _assert_exact(z, v):
+    """z is the argmax of v on every row outside the fp32 tie band."""
     top2, arg = v.topk(2, dim=-1)
     tie = (top2[:, 0] - top2[:, 1]) <= 3e-5 * top2[:, 0].abs() + 1e-3
-    assert int(tie.sum()) <= 0.01 * n
-    assert torch.equal(z[~tie], arg[~tie, 0])
+    assert int(tie.sum()) <= 0.01 * len(z)
+    assert torch.equal(z.long()[~tie], arg[~tie, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,c", [(3001, 20, 7, 3), (4097, 64, 16, 1), (1537, 256, 9, 3),
+                                     (130, 256, 64, 3)])
+def test_cuda_chains_kernel_matches_plain(cuda_device, n, d, k, c):
+    """Each chain's z is the argmax of its slots' plain scores plus the
+    kernel's Philox noise with the chain word, on dense (not triangular)
+    B_k; chain 0 is exactly the single-chain kernel on its slots."""
+    r = np.random.default_rng(n + c)
+    X, _, _, _ = _assign_problem(n, d, 1, 0.3, n, cuda_device)
+    mu = torch.tensor(r.normal(scale=0.3, size=(c * k, d)), dtype=torch.float32, device=cuda_device)
+    binv = torch.tensor(r.normal(scale=d ** -0.5, size=(c * k, d, d)) + np.eye(d),
+                        dtype=torch.float32, device=cuda_device)
+    base = torch.tensor(r.normal(size=c * k), dtype=torch.float32, device=cuda_device)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    before = ga.fused_gaussian_assign_chains.launches
+    z = ga.fused_gaussian_assign_chains(X, mu, binv, base, seed, c)
+    assert ga.fused_gaussian_assign_chains.launches == before + 1
+    assert z.shape == (c, n) and z.dtype == torch.int32
+    for ch in range(c):
+        sl = slice(ch * k, (ch + 1) * k)
+        _assert_exact(z[ch], ga.philox_scores(X, mu[sl], binv[sl], base[sl], seed, chain=ch))
+    z1 = ga.fused_gaussian_assign(X, mu[:k].contiguous(), binv[:k].contiguous(),
+                                  base[:k].contiguous(), seed)
+    assert torch.equal(z[0], z1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(100_003, 64, 32), (3001, 20, 7), (777, 256, 40), (999, 300, 33)])
+def test_cuda_linear_kernel_matches_plain(cuda_device, n, d, k):
+    """z is the argmax of X @ W^T + base plus the kernel's Philox noise on
+    every row outside the fp32 tie band (binary rows, bbv's W and base)."""
+    r = np.random.default_rng(n)
+    p = r.uniform(0.05, 0.95, size=(k, d))
+    X = torch.tensor(r.random((n, d)) < p[r.integers(0, k, n)], dtype=torch.float32,
+                     device=cuda_device)
+    W = torch.tensor(np.log(p) - np.log1p(-p), dtype=torch.float32, device=cuda_device)
+    base = torch.tensor(np.log1p(-p).sum(-1) + np.log(r.dirichlet(np.ones(k))),
+                        dtype=torch.float32, device=cuda_device)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    before = la.fused_linear_assign.launches
+    z = la.fused_linear_assign(X, W, base, seed)
+    assert la.fused_linear_assign.launches == before + 1
+    _assert_exact(z, la.linear_philox_scores(X, W, base, seed))
 
 
 @pytest.mark.cuda

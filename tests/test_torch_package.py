@@ -25,6 +25,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import common_tpu_torch, common_tpu_torch.runner, common_tpu_torch.convert\n"
         "import common_tpu_torch.kernels.blocked, common_tpu_torch.ops._build\n"
+        "import common_tpu_torch.kernels.slice_, common_tpu_torch.ops.linear_assign\n"
+        "import common_tpu_torch.parallel, common_tpu_torch.utils.diagnostics\n"
+        "import common_tpu_torch.scalar_functions, common_tpu_torch.likelihoods.bbv\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -40,7 +43,7 @@ def test_tf32_is_off_and_the_sweeps_refuse_it():
     s = st.initialize(defn, data, rng(0).generator)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        for sweep in (blocked.sweep, blocked.sweep_fused):
+        for sweep in (blocked.sweep, blocked.sweep_fused, blocked.sweep_chains):
             with pytest.raises(RuntimeError, match="allow_tf32"):
                 sweep(s, data, rng(1).generator)
     finally:
@@ -85,7 +88,8 @@ def test_rng_handle_and_validation():
 
 def test_build_is_keyed_by_the_sources():
     names = [p.name for p in _build._sources()]
-    assert "gaussian_assign.cu" in names and "suffstat.cu" in names and "philox.cuh" in names
+    for src in ("gaussian_assign.cu", "suffstat.cu", "linear_assign.cu", "philox.cuh"):
+        assert src in names
     digest = _build._digest()
     assert len(digest) == 16 and digest == _build._digest()
     assert "sm_90a" in " ".join(_build.ARCH_FLAGS)
