@@ -47,6 +47,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    one-cluster state's, and the linear kernel draw for draw on the path's
    own inputs; prints iterations/s, the kernel against its plain version
    and the slice sampler's share.
+6. BASELINE config 1 by collapsed Gibbs: 10,000 x 2 rows around the three
+   planted centers of `examples/dpmm.py` (scale 0.6, numpy seed 0),
+   `models.niw(2)`, K_max=32, alpha=1, CRP initial state;
+   runner(..., [("assign", {}), ("grid_cluster_hp", {...})], jsonl_path=...)
+   for 13 sweeps. Checks the co-assignment agreement of `query.zmatrix`
+   over the last 4 sweeps with the planted labels (bar > 0.95), finite
+   scores, one JSONL line per sweep, that none of the four kernels ran;
+   checkpoints after 1 sweep with the generator, resumes for 1 more and
+   requires the assignments and scores of the uninterrupted run's first 2
+   sweeps bit for bit; runs one sweep under
+   `torch.cuda.set_sync_debug_mode("error")`; prints rows/s, and the
+   kernel launches per row and idle share of a traced sweep over the first
+   300 rows.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -74,6 +87,11 @@ N, D, K_MAX, HELDOUT = 1_000_000, 256, 64, 4096
 N_SWEEPS = 10
 N_CHAINS, CHAIN_SWEEPS = 4, 5
 N2, D2, K2, ITERS2 = 100_000, 64, 32, 8  # config 2
+N6, K6, SWEEPS6, LAST6, TRACE_ROWS6 = 10_000, 32, 13, 4, 300  # config 1, collapsed
+# generator seeds of phase 6's CRP initial state and of its sweeps (see PERF.md:
+# collapsed Gibbs moves one row at a time, and from some starts keeps a planted
+# cluster split in two for tens of sweeps; from this one it recovers all three)
+INIT6, GEN6 = 5, 105
 
 
 class SmokeFailure(Exception):
@@ -112,8 +130,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_sweep(fn) -> float:
-    """Device time by kernel, and the idle share, over one traced call of fn()."""
+def profile_sweep(fn):
+    """Device time by kernel, the idle share and the count of device kernels
+    and copies, over one traced call of fn(); returns (idle share, count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,7 +154,7 @@ def profile_sweep(fn) -> float:
         f"{launched} device kernels and copies")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  {ms:9.3f} ms  {name[:90]}")
-    return idle
+    return idle, launched
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +596,7 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     log(f"gaussian_assign {N}x{D} K={K_MAX}: kernel {k1:.2f} ms, plain {p1:.2f} ms")
     log(f"scatter_stats {N}x{D} K={K_MAX} (main-path z): kernel {k2:.2f} ms, plain {p2:.2f} ms, "
         f"max abs err {err2:.3e}")
-    idle = profile_sweep(lambda: run.run(gen, 1))
+    idle, _ = profile_sweep(lambda: run.run(gen, 1))
     return {
         "kernels": [
             {"name": "gaussian_assign", "route": "cuda",
@@ -691,7 +710,7 @@ def phase_chains(headline: dict) -> dict:
     k4 = cuda_ms(lambda: ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C), 3)
     p4 = cuda_ms(lambda: ga.gaussian_assign_chains_plain(x, mu, minv, base, C, gen), 2)
     log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: kernel {k4:.2f} ms, plain {p4:.2f} ms")
-    idle = profile_sweep(lambda: blocked.sweep_chains(states, data, gen, fused=True))
+    idle, _ = profile_sweep(lambda: blocked.sweep_chains(states, data, gen, fused=True))
     return {
         "kernel": {"name": "gaussian_assign_chains", "route": "cuda",
                    "source": "common_tpu_torch/csrc/gaussian_assign.cu",
@@ -805,7 +824,7 @@ def phase_config2() -> dict:
     log(f"one slice target evaluation: {waited_ms:.3f} ms with the host waiting on it, "
         f"{queued_ms:.3f} ms queued back to back; slice_hp is about "
         f"{hp_med / waited_ms:.0f} evaluations")
-    hp_idle = profile_sweep(lambda: slice_.hp(s, data, gen, **hp_kw))
+    hp_idle, _ = profile_sweep(lambda: slice_.hp(s, data, gen, **hp_kw))
 
     # the kernel against its plain version, on this path's own inputs
     W, base, _ = blocked.linear_assign_inputs(s, data, gen)
@@ -830,6 +849,124 @@ def phase_config2() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: BASELINE config 1 by collapsed Gibbs
+# ---------------------------------------------------------------------------
+def phase_collapsed() -> dict:
+    import os
+    import tempfile
+
+    import torch
+
+    from common_tpu_torch import io, models, query, rng, scalar_functions as sf, state as st
+    from common_tpu_torch.kernels import gibbs
+    from common_tpu_torch.ops import gaussian_assign as ga
+    from common_tpu_torch.ops import linear_assign as la
+    from common_tpu_torch.ops import suffstat as ss
+    from common_tpu_torch.runner import runner
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    # examples/dpmm.py:21-23 at 10k rows
+    r = np.random.default_rng(SEED)
+    centers = np.array([[-4.0, 0.0], [4.0, 0.0], [0.0, 5.0]])
+    z_true = r.integers(0, 3, N6)
+    X = (centers[z_true] + r.normal(scale=0.6, size=(N6, 2))).astype(np.float32)
+    data = ((torch.from_numpy(X).to(dev), torch.ones(N6, device=dev)),)
+    defn = st.model_definition(N6, [models.niw(2)], k_max=K6)
+    s0 = st.initialize(defn, data, rng(INIT6, dev).generator, cluster_hp={"alpha": 1.0})
+    config = [("assign", {}), ("grid_cluster_hp", {"prior": sf.log_exponential(1.0),
+                                                   "grid": np.geomspace(0.1, 10, 30)})]
+    kernels = (ga.fused_gaussian_assign, ga.fused_gaussian_assign_chains,
+               la.fused_linear_assign, ss.fused_scatter_stats)
+    for k in kernels:
+        k.launches = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweeps.jsonl")
+        run = runner(defn, data, s0, config, jsonl_path=path)
+        gen = rng(GEN6, dev).generator
+        sweep_s = []
+        for _ in range(SWEEPS6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.run(gen, 1)
+            torch.cuda.synchronize()
+            sweep_s.append(time.perf_counter() - t0)
+        with open(path) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()]
+    scores, k_active = run.score_trace, run.k_active_trace
+    out = run.get_latent()
+    log(f"runner.run x {SWEEPS6} ([assign, grid_cluster_hp]) at {N6}x2, K_max={K6}: "
+        f"{[round(t, 2) for t in sweep_s]} s a sweep")
+    log(f"score_joint trace: {scores.tolist()}")
+    log(f"k_active trace: {k_active.tolist()}; alpha {float(out.cluster_hp['alpha']):.4f}")
+    require(np.isfinite(scores).all(), "non-finite score_joint")
+    require(len(lines) == SWEEPS6 and [x["sweep"] for x in lines] == list(range(SWEEPS6)),
+            f"{len(lines)} JSONL lines for {SWEEPS6} sweeps")
+    require([x["score_joint"] for x in lines] == scores.astype(np.float64).tolist(),
+            "JSONL scores differ from the score trace")
+    require(int(out.counts.sum()) == N6, "counts do not sum to N")
+    launched = {k.__name__: k.launches for k in kernels}
+    require(not any(launched.values()), f"the collapsed path launched a hand-written kernel: {launched}")
+
+    zs = torch.from_numpy(run.assignment_trace[-LAST6:]).to(dev)
+    co = torch.from_numpy(query.zmatrix(zs) > 0.5).to(dev)
+    zt = torch.from_numpy(z_true).to(dev)
+    agree = (co == (zt[:, None] == zt[None, :])).double().mean().item()
+    log(f"co-assignment agreement with the planted labels, zmatrix of the last {LAST6} sweeps: "
+        f"{agree:.5f} (bar > 0.95); k_active {int(k_active[-1])} (expect 3-5)")
+    require(agree > 0.95, f"co-assignment agreement {agree} <= 0.95")
+
+    # resume: 1 sweep, checkpoint with the generator, 1 more, against the
+    # uninterrupted run's first 2 sweeps
+    g = rng(GEN6, dev).generator
+    first = runner(defn, data, s0, config)
+    first.run(g, 1)
+    blob = io.serialize(first.get_latent(), extra={"gen": g})
+    restored, extra = io.deserialize(blob, device=dev)
+    rest = runner(defn, data, restored, config)
+    rest.run(extra["gen"], 1)
+    same_z = np.array_equal(np.concatenate([first.assignment_trace, rest.assignment_trace]),
+                            run.assignment_trace[:2])
+    same_score = np.array_equal(np.concatenate([first.score_trace, rest.score_trace]),
+                                scores[:2])
+    log(f"resume after 1 sweep from a {len(blob)}-byte checkpoint: assignments "
+        f"{'equal' if same_z else 'DIFFER'}, scores {'equal' if same_score else 'DIFFER'} "
+        f"(bit for bit against the uninterrupted run)")
+    require(same_z and same_score, "resumed run differs from the uninterrupted one")
+
+    # one sweep under the sync check, timed: the rate
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        swept = gibbs.assign(out, data, gen)
+        torch.cuda.synchronize()
+        assign_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(int(swept.counts.sum()) == N6, "counts do not sum to N after the checked sweep")
+    log(f"one gibbs.assign sweep under set_sync_debug_mode('error'): no host wait; "
+        f"{assign_s:.2f} s, {N6 / assign_s:.1f} rows/s")
+
+    # kernel launches per row and the idle share, on the first rows
+    sub = tuple((x[:TRACE_ROWS6], m[:TRACE_ROWS6]) for x, m in data)
+    s_sub = st.initialize(st.model_definition(TRACE_ROWS6, [models.niw(2)], k_max=K6), sub, gen,
+                          cluster_hp={"alpha": float(out.cluster_hp["alpha"])},
+                          assignment=out.assignments[:TRACE_ROWS6])
+    idle, launched_n = profile_sweep(lambda: gibbs.assign(s_sub, sub, gen))
+    per_row = launched_n / TRACE_ROWS6
+    log(f"traced sweep of the first {TRACE_ROWS6} rows: {per_row:.1f} device kernels and copies "
+        f"a row, idle share {idle:.3f}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 6 wall time {phase_s:.1f} s")
+    return {"rows_per_s": N6 / assign_s, "assign_sweep_s": assign_s,
+            "runner_sweep_s": sweep_s, "agreement": agree, "k_active": int(k_active[-1]),
+            "alpha": float(out.cluster_hp["alpha"]), "launches_per_row": per_row,
+            "idle_share": idle, "checkpoint_bytes": len(blob), "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -844,12 +981,13 @@ def main() -> int:
         chains = phase_chains(headline)
         del headline
         config2 = phase_config2()
+        collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2,
-                    "card": env["card"]}))
+                    "collapsed": collapsed, "card": env["card"]}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Slice sampling of hyperparameters (port of `common_tpu/kernels/slice_.py`).
 
 Neal (2003): stepping-out, then shrinkage. Reference analog:
-`kernels:microscopes/kernels/slice.pyx`, ``slice.hp(state, rng, hparams)``,
-which resamples feature and cluster hyperparameters under continuous
-priors. The targets are the package's own scores (`marginal_loglik`, the
-EPPF).
+`kernels:microscopes/kernels/slice.pyx`: ``slice.theta(state, rng,
+tparams)`` resamples non-conjugate per-cluster latents (bbnc's p), and
+``slice.hp(state, rng, hparams)`` feature and cluster hyperparameters under
+continuous priors. The targets are the package's own scores
+(`posterior_logpdf_unnorm`, `marginal_loglik`, the EPPF).
 
 The JAX package runs each loop as a bounded `lax.while_loop`. Here each
 loop is a Python loop whose test reads one device scalar on the host, so
@@ -33,40 +34,74 @@ _MAX_SHRINK = 64
 
 def slice_sample(generator: torch.Generator, x0, logf: Callable, w: float = 1.0,
                  lower: float = -math.inf, upper: float = math.inf) -> torch.Tensor:
-    """One univariate slice-sampling update of the target density exp(logf).
+    """Univariate slice-sampling updates of the target density exp(logf).
 
     Stepping-out with width w (at most _MAX_STEPOUT steps a side, clipped
-    to [lower, upper]), then shrinkage (at most _MAX_SHRINK proposals; when
-    they run out x0 is returned, a no-op that keeps detailed balance).
-    x0 and the result are float32 0-d tensors on the generator's device;
-    logf maps such a tensor to a 0-d tensor.
+    to [lower, upper]), then shrinkage (at most _MAX_SHRINK proposals; an
+    entry whose proposals run out keeps x0, a no-op that keeps detailed
+    balance). x0 is a float32 tensor on the generator's device, 0-d or
+    batched: each entry is an independent update of its own target, and
+    logf maps a tensor of x0's shape to one of log densities of that shape.
+    Every loop test reads one device scalar: whether any entry still moves.
     """
     dev = generator.device
     x0 = torch.as_tensor(x0, device=dev).to(torch.float32)
-    y = logf(x0) + torch.log(uniform_open((), generator))  # logf(x0) - Exp(1)
-    u = uniform_open((), generator)
+    shape = x0.shape
+    y = logf(x0) + torch.log(uniform_open(shape, generator))  # logf(x0) - Exp(1)
+    u = uniform_open(shape, generator)
     L0 = torch.clamp(x0 - u * w, min=lower)
     R0 = torch.clamp(L0 + w, max=upper)
 
     def step_out(edge, step):
-        grow = bool(logf(edge) > y)
+        grow = logf(edge) > y
         for _ in range(_MAX_STEPOUT):
-            if not grow:
+            if not bool(grow.any()):
                 break
-            new_edge = torch.clamp(edge + step, lower, upper)
-            grow = bool((logf(new_edge) > y) & (new_edge != edge))
+            new_edge = torch.where(grow, torch.clamp(edge + step, lower, upper), edge)
+            grow = grow & (logf(new_edge) > y) & (new_edge != edge)
             edge = new_edge
         return edge
 
     lo, hi = step_out(L0, -w), step_out(R0, w)
+    x, done = x0, torch.zeros(shape, dtype=torch.bool, device=dev)
     for _ in range(_MAX_SHRINK):
-        xp = lo + uniform_open((), generator) * (hi - lo)
-        if bool(logf(xp) >= y):
-            return xp
+        xp = lo + uniform_open(shape, generator) * (hi - lo)
+        ok = ~done & (logf(xp) >= y)
+        x = torch.where(ok, xp, x)
+        done = done | ok
+        if bool(done.all()):
+            break
         left = xp < x0
-        lo = torch.where(left, xp, lo)
-        hi = torch.where(left, hi, xp)
-    return x0
+        lo = torch.where(~done & left, xp, lo)
+        hi = torch.where(~done & ~left, xp, hi)
+    return x
+
+
+def theta(state: MixtureState, generator: torch.Generator, w: float = 0.5) -> MixtureState:
+    """Slice-resample explicit per-cluster latents (slice.theta).
+
+    For each non-conjugate feature, each latent leaf is updated slot by
+    slot against the feature's `posterior_logpdf_unnorm` conditional, all
+    K slots in one batched `slice_sample`; empty slots then take fresh
+    prior draws through `refresh_latents` (their conditional is the prior,
+    and a prior draw mixes at once).
+    """
+    new_stats = []
+    for lik, hyper, stats_f in zip(state.likelihoods(), state.hypers, state.stats):
+        if lik.conjugate or not lik.latent_leaves:
+            new_stats.append(stats_f)
+            continue
+        stats_new = dict(stats_f)
+        for leaf in lik.latent_leaves:
+            lo, hi = getattr(lik, "latent_bounds", {}).get(leaf, (-math.inf, math.inf))
+
+            def logf(v, leaf=leaf):
+                return lik.posterior_logpdf_unnorm(hyper, stats_f, v)
+
+            vals = stats_f[leaf]
+            stats_new[leaf] = slice_sample(generator, vals, logf, w=w, lower=lo, upper=hi).to(vals.dtype)
+        new_stats.append(lik.refresh_latents(generator, hyper, stats_new, state.counts == 0))
+    return dataclasses.replace(state, stats=tuple(new_stats))
 
 
 def hp(state: MixtureState, data, generator: torch.Generator,

@@ -9,11 +9,16 @@ dicts whose leaves carry a leading cluster axis ``[K, ...]``:
   - ``pred_logpdf``          posterior predictive log p(x | stats), all K
   - ``marginal_loglik``      log marginal likelihood of each cluster's data
   - ``sample_params`` /      explicit-parameter path of the blocked sampler
-    ``logpdf_batch``
+    ``logpdf_batch``         and of posterior draws
+  - stats fold               ``stats + sign * tx`` into one cluster slot: the
+                             collapsed sampler's add_value / remove_value
 
 Conventions: ``stats`` is a dict of tensors with its own ``n`` leaf (rows
 observed for this feature; masked cells do not count); ``hyper`` is a dict
-of tensors; mask is 0.0/1.0. Every sampling method takes an explicit
+of tensors; mask is 0.0/1.0. ``tx`` broadcasts over a leading row axis, so
+one function serves a single row and a segment sum. Hypers may carry batch
+axes that broadcast against the stats' (a grid of G hypers as [G, 1, ...]
+against [K, ...] stats). Every sampling method takes an explicit
 `torch.Generator` on the device of its tensors.
 """
 
@@ -31,6 +36,57 @@ def _as_tensor(v, dtype: torch.dtype, device) -> torch.Tensor:
     """A hyper value as a tensor: floating values take `dtype`, others keep theirs."""
     t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, device=device)
     return t.to(dtype) if t.is_floating_point() else t
+
+
+def _slot(gid, device) -> torch.Tensor:
+    """Cluster slot `gid` (an int or a 0-d tensor) as a [1] int64 index on `device`.
+
+    A device tensor stays on the device, so the index never waits for it.
+    """
+    if torch.is_tensor(gid):
+        return gid.reshape(1).to(torch.int64)
+    return torch.full((1,), int(gid), dtype=torch.int64, device=device)
+
+
+def fold(stats: Stats, tx: Stats, sign) -> Stats:
+    """stats <- stats + sign * tx  (generic add_value/remove_value)."""
+    return {k: s + sign * tx[k] for k, s in stats.items()}
+
+
+def scatter_fold_(stats: Stats, gid, tx: Stats, sign) -> Stats:
+    """Add sign * tx, one row's contribution, into cluster slot `gid`, in place.
+
+    Leaves of `stats` have a leading cluster axis [K, ...]; `sign` is a
+    number or a 0-d tensor.
+    """
+    for k, s in stats.items():
+        idx = _slot(gid, s.device)
+        s.index_add_(0, idx, (sign * tx[k].to(s.dtype)).unsqueeze(0))
+    return stats
+
+
+def zero_slot_(stats: Stats, gid, keep) -> Stats:
+    """Multiply cluster slot `gid` by `keep` (0 clears it), in place.
+
+    Kills float drift when a cluster empties: exact-sum suffstats
+    accumulate rounding error across add/remove cycles, and clearing an
+    emptied slot restores the empty-group invariant stats == 0 exactly (the
+    reference deletes the group object: group_manager.hpp delete_group).
+    """
+    for s in stats.values():
+        idx = _slot(gid, s.device)
+        s.index_copy_(0, idx, s.index_select(0, idx) * keep)
+    return stats
+
+
+def scatter_fold(stats: Stats, gid, tx: Stats, sign) -> Stats:
+    """`scatter_fold_` on a copy: the caller's stats stay unchanged."""
+    return scatter_fold_({k: s.clone() for k, s in stats.items()}, gid, tx, sign)
+
+
+def zero_slot(stats: Stats, gid, keep) -> Stats:
+    """`zero_slot_` on a copy: the caller's stats stay unchanged."""
+    return zero_slot_({k: s.clone() for k, s in stats.items()}, gid, keep)
 
 
 class Likelihood:
@@ -68,8 +124,25 @@ class Likelihood:
         raise NotImplementedError
 
     def stats_from_assignments(self, hyper, X, mask, gid, K: int) -> Stats:
-        """Per-cluster suffstats from scratch; rows with gid outside [0, K) drop."""
-        raise NotImplementedError
+        """Per-cluster suffstats from scratch; rows with gid outside [0, K) drop.
+
+        Generic path: `tx` of all rows at once, then one segment sum per
+        leaf (an index_add into K + 1 bins, the last one dropped). Latent
+        leaves are not sums: they keep `init_stats`' values. Override where
+        the per-row suffstat is large (NIW's outer products).
+        """
+        g = torch.where((gid >= 0) & (gid < K), gid, K).to(torch.int64)
+        txs = self.tx(hyper, X, mask)
+        zeros = self.init_stats(hyper, (K,))
+        out = {}
+        for k, z in zeros.items():
+            if k in self.latent_leaves:
+                out[k] = z
+                continue
+            t = txs[k].to(z.dtype)
+            acc = torch.zeros((K + 1, *z.shape[1:]), dtype=z.dtype, device=z.device)
+            out[k] = acc.index_add_(0, g, t)[:K]
+        return out
 
     # --- collapsed scoring ---------------------------------------------
     def posterior_hyper(self, hyper, stats):
@@ -97,9 +170,31 @@ class Likelihood:
         """Draw theta ~ p(theta | stats) (posterior; prior when stats == 0)."""
         raise NotImplementedError
 
+    def logpdf(self, theta, x):
+        """log p(x | theta); broadcasts over theta's batch axes."""
+        raise NotImplementedError
+
     def logpdf_batch(self, theta, X, mask):
         """[N, K] log-likelihood table for the blocked sampler."""
         raise NotImplementedError
+
+    def sample_value(self, generator: torch.Generator, theta):
+        """Draw x ~ p(x | theta), one value per entry of theta's batch axes."""
+        raise NotImplementedError
+
+    def prior_logpdf(self, hyper, theta):
+        """log p(theta | hyper), for the non-conjugate kernels."""
+        raise NotImplementedError
+
+    def refresh_latents(self, generator: torch.Generator, hyper, stats, refresh_mask):
+        """Redraw any explicit latents inside `stats` where refresh_mask is set.
+
+        The identity for conjugate models, which have no explicit latents.
+        Non-conjugate models (bbnc) override it: Neal-8 aux slots and birth
+        candidates need fresh prior draws before they can be scored.
+        """
+        del generator, hyper, refresh_mask
+        return stats
 
     def __repr__(self):
         return f"<likelihood {self.name}>"

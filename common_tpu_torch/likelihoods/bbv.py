@@ -145,12 +145,26 @@ class BBV(base.Likelihood):
         fi = torch.finfo(p.dtype)
         return {"p": p.clamp(fi.tiny, 1.0 - fi.eps / 2)}
 
+    def logpdf(self, theta, x):
+        p = theta["p"]
+        x = x.to(p.dtype)
+        return torch.sum(x * torch.log(p) + (1.0 - x) * torch.log1p(-p), dim=-1)
+
     def logpdf_batch(self, theta, X, mask):
         """[N, K] Bernoulli log-likelihood table in the product form; masked rows score 0."""
         x = X.to(theta["p"].dtype)
         lp = torch.log(theta["p"])
         lq = torch.log1p(-theta["p"])
         return (x @ (lp - lq).T + lq.sum(-1)[None, :]) * mask[:, None]
+
+    def sample_value(self, generator, theta):
+        p = theta["p"]
+        return (torch.rand(p.shape, generator=generator, device=p.device, dtype=p.dtype) < p).to(p.dtype)
+
+    def prior_logpdf(self, hyper, theta):
+        a, b = hyper["alpha"], hyper["beta"]
+        p = theta["p"]
+        return torch.sum((a - 1.0) * torch.log(p) + (b - 1.0) * torch.log1p(-p) - betaln(a, b), dim=-1)
 
 
 bbv = base.register(BBV())

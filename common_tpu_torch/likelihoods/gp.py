@@ -1,0 +1,88 @@
+"""Gamma-Poisson likelihood (port of `common_tpu/likelihoods/gp.py`).
+
+Reference analog: `distributions:include/distributions/models/gp.hpp`
+(GammaPoisson), surfaced as the ``gp`` descriptor in
+``common:microscopes/models.py``.
+
+Suffstats: (n, sum_x, sum_log_fact = sum log x!). Hyper: alpha (shape),
+inv_beta (rate). The predictive is negative-binomial.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from common_tpu_torch.likelihoods import base
+from common_tpu_torch.rng import standard_gamma
+
+
+class GP(base.Likelihood):
+    name = "gp"
+    conjugate = True
+
+    def default_hyper(self):
+        return {"alpha": 1.0, "inv_beta": 1.0}
+
+    def init_stats(self, hyper, batch_shape):
+        a = hyper["alpha"]
+        z = torch.zeros(batch_shape, dtype=a.dtype, device=a.device)
+        return {"n": z, "sum_x": z.clone(), "sum_log_fact": z.clone()}
+
+    def tx(self, hyper, x, mask):
+        dt = hyper["alpha"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)
+        xf = x.to(dt)
+        return {"n": m, "sum_x": m * xf, "sum_log_fact": m * torch.lgamma(xf + 1.0)}
+
+    def posterior_hyper(self, hyper, stats):
+        return {
+            "alpha": hyper["alpha"] + stats["sum_x"],
+            "inv_beta": hyper["inv_beta"] + stats["n"],
+        }
+
+    def marginal_loglik(self, hyper, stats):
+        a, b = hyper["alpha"], hyper["inv_beta"]
+        a_n = a + stats["sum_x"]
+        b_n = b + stats["n"]
+        return (
+            a * torch.log(b)
+            - a_n * torch.log(b_n)
+            + torch.lgamma(a_n)
+            - torch.lgamma(a)
+            - stats["sum_log_fact"]
+        )
+
+    def pred_logpdf(self, hyper, stats, x):
+        a_n = hyper["alpha"] + stats["sum_x"]
+        b_n = hyper["inv_beta"] + stats["n"]
+        xf = x.to(a_n.dtype)
+        return (
+            torch.lgamma(a_n + xf)
+            - torch.lgamma(a_n)
+            - torch.lgamma(xf + 1.0)
+            + a_n * torch.log(b_n / (b_n + 1.0))
+            - xf * torch.log(b_n + 1.0)
+        )
+
+    def sample_params(self, generator, hyper, stats):
+        post = self.posterior_hyper(hyper, stats)
+        return {"lam": standard_gamma(post["alpha"], generator) / post["inv_beta"]}
+
+    def logpdf(self, theta, x):
+        lam = theta["lam"]
+        xf = x.to(lam.dtype)
+        return xf * torch.log(lam) - lam - torch.lgamma(xf + 1.0)
+
+    def logpdf_batch(self, theta, X, mask):
+        return self.logpdf(theta, X[:, None]) * mask[:, None]
+
+    def sample_value(self, generator, theta):
+        return torch.poisson(theta["lam"], generator=generator).to(torch.int32)
+
+    def prior_logpdf(self, hyper, theta):
+        a, b = hyper["alpha"], hyper["inv_beta"]
+        lam = theta["lam"]
+        return a * torch.log(b) - torch.lgamma(a) + (a - 1.0) * torch.log(lam) - b * lam
+
+
+gp = base.register(GP())

@@ -271,6 +271,45 @@ class NIW(base.Likelihood):
         mu = mu_n + (L @ y)[..., 0] / torch.sqrt(kappa_n)[..., None]
         return {"mu": mu, "prec": prec, "logdet": logdet, "minv": minv}
 
+    def logpdf(self, theta, x):
+        """Gaussian log density of x [D], broadcast over theta's batch axes."""
+        d = x.shape[-1]
+        chol = theta["cov_chol"]
+        dev = (x - theta["mu"]).expand_as(theta["mu"])[..., None]
+        y = torch.linalg.solve_triangular(chol, dev, upper=False)[..., 0]
+        return -0.5 * (y * y).sum(-1) - 0.5 * _chol_logdet(chol) - 0.5 * d * math.log(2.0 * math.pi)
+
+    def sample_value(self, generator, theta):
+        """x = mu + L z, z ~ N(0, I), for every entry of theta's batch axes."""
+        mu = theta["mu"]
+        z = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        return mu + (theta["cov_chol"] @ z[..., None])[..., 0]
+
+    def prior_logpdf(self, hyper, theta):
+        """log NIW(mu, Sigma | hyper) with Sigma = cov_chol @ cov_chol^T."""
+        d = hyper["mu0"].shape[-1]
+        chol = theta["cov_chol"]
+        nu, kappa, psi, mu0 = hyper["nu"], hyper["kappa"], hyper["psi"], hyper["mu0"]
+        logdet_sigma = _chol_logdet(chol)
+        # inverse-Wishart density; trace(Sigma^-1 psi) from two triangular solves
+        sol = torch.linalg.solve_triangular(chol, psi.expand_as(chol), upper=False)
+        sol = torch.linalg.solve_triangular(chol.transpose(-1, -2), sol, upper=True)
+        iw = (
+            0.5 * nu * _chol_logdet(_chol(psi))
+            - 0.5 * nu * d * math.log(2.0)
+            - multigammaln(nu / 2.0, d)
+            - 0.5 * (nu + d + 1.0) * logdet_sigma
+            - 0.5 * _trace(sol)
+        )
+        # normal on mu: N(mu0, Sigma / kappa)
+        y = torch.linalg.solve_triangular(chol, (theta["mu"] - mu0)[..., None], upper=False)[..., 0]
+        norm = (
+            -0.5 * kappa * (y * y).sum(-1)
+            - 0.5 * logdet_sigma
+            + 0.5 * d * (torch.log(kappa) - math.log(2.0 * math.pi))
+        )
+        return iw + norm
+
     def logpdf_batch(self, theta, X, mask):
         """[N, K] Gaussian log-likelihood table, one matmul per cluster.
 

@@ -2,7 +2,9 @@
 
 The reference's ``common:microscopes/models.py`` pairs a likelihood with
 default hyperparameters and the runtime type of its data column. The port
-carries the `niw` and `bbv` descriptors.
+carries the reference's zoo (``bb``, ``bbnc``, ``gp``, ``nich``, ``bnb``,
+``niw(d)``, ``dd(n)``, ``dm(n)``) and ``bbv(d)``, with the JAX package's
+defaults.
 """
 
 from __future__ import annotations
@@ -45,6 +47,21 @@ class model_descriptor:
         return f"<model {self.name} {self.rtype.dtype}{self.rtype.shape}>"
 
 
+# --- the zoo (names and defaults as in common_tpu/models.py) ----------------
+
+bb = model_descriptor(_lik.bb, {"alpha": 1.0, "beta": 1.0}, rt.TYPE_B)
+
+bbnc = model_descriptor(_lik.bbnc, {"alpha": 1.0, "beta": 1.0}, rt.TYPE_B)
+
+gp = model_descriptor(_lik.gp, {"alpha": 1.0, "inv_beta": 1.0}, rt.TYPE_I32)
+
+nich = model_descriptor(
+    _lik.nich, {"mu": 0.0, "kappa": 1.0, "sigmasq": 1.0, "nu": 1.0}, rt.TYPE_F32
+)
+
+bnb = model_descriptor(_lik.bnb, {"alpha": 1.0, "beta": 1.0, "r": 1.0}, rt.TYPE_I32)
+
+
 def niw(dim: int) -> model_descriptor:
     """Normal-Inverse-Wishart over R^dim (multivariate Gaussian rows)."""
     validator.validate_positive(dim, "niw dim")
@@ -69,4 +86,18 @@ def bbv(d: int) -> model_descriptor:
         _lik.bbv,
         {"alpha": np.ones(d, np.float32), "beta": np.ones(d, np.float32)},
         rt.vector(rt.TYPE_B, d),
+    )
+
+
+def dd(n: int) -> model_descriptor:
+    """Dirichlet-Discrete over n categories."""
+    validator.validate_positive(n, "dd categories")
+    return model_descriptor(_lik.dd, {"alphas": np.ones(n, np.float32)}, rt.TYPE_I32)
+
+
+def dm(n: int) -> model_descriptor:
+    """Dirichlet-Multinomial over n categories (rows are count vectors)."""
+    validator.validate_positive(n, "dm categories")
+    return model_descriptor(
+        _lik.dm, {"alphas": np.ones(n, np.float32)}, rt.vector(rt.TYPE_I32, n)
     )

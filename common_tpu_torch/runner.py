@@ -3,8 +3,8 @@
 Reference analog: the `runner` layer of the reference ecosystem
 (`kernels:microscopes/kernels/runner.py`): takes a model definition, a
 dataview, an initialized latent state and a *kernel config* -- an ordered
-list like ``[('assign_blocked_fused', {})]`` -- and applies each kernel once
-per iteration. A mix such as
+list like ``[('assign', {}), ('grid_feature_hp', spec), ('theta', {})]`` --
+and applies each kernel once per iteration. A mix such as
 ``[('assign_blocked_fused', {}), ('slice_hp', {'specs': ..., 'cluster': ...})]``
 sweeps the rows, then slice-samples the hyperparameters.
 
@@ -12,27 +12,70 @@ The JAX package runs the loop as one `lax.scan`; here it is a Python loop.
 The per-sweep traces (joint score, active-cluster count, counts and,
 optionally, assignments) stay on the device until the end of `run`, so the
 loop itself never waits on the device between sweeps (the slice sampler
-does, inside `slice_hp`: see `kernels/slice_.py`).
+does, inside `slice_hp` and `slice_theta`: see `kernels/slice_.py`).
+`jsonl_path` adds one JSON line per sweep, written at the end of each `run`.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
-from common_tpu_torch.kernels import blocked, slice_
+from common_tpu_torch.kernels import blocked, gibbs, slice_
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.utils import diagnostics
+
+
+def _k_assign(state, data, generator, **kw):
+    return gibbs.assign_resample(state, data, generator, m=kw.get("m", 1))
+
+
+def _k_assign_resample(state, data, generator, **kw):
+    return gibbs.assign_resample(state, data, generator, m=kw.get("m", 2))
+
+
+def _k_assign_fixed(state, data, generator, **kw):
+    return gibbs.assign_resample(state, data, generator, m=1)
+
+
+def _k_grid_feature_hp(state, data, generator, **kw):
+    return gibbs.hp(state, kw["specs"], generator)
+
+
+def _k_grid_cluster_hp(state, data, generator, **kw):
+    return gibbs.cluster_hp(state, kw["prior"], kw["grid"], generator)
+
+
+def _k_ew_cluster_hp(state, data, generator, **kw):
+    return gibbs.cluster_hp_escobar_west(state, generator, kw.get("a", 1.0), kw.get("b", 1.0))
+
+
+def _k_theta(state, data, generator, **kw):
+    return gibbs.theta(state, generator)
+
+
+def _k_slice_theta(state, data, generator, **kw):
+    return slice_.theta(state, generator, **kw)
 
 
 # kernel name -> fn(state, data, generator, **kw) -> state
 KERNELS: Dict[str, Callable] = {
+    "assign": _k_assign,
+    "assign_resample": _k_assign_resample,
+    "assign_fixed": _k_assign_fixed,
     "assign_blocked": blocked.sweep,
     "assign_blocked_fused": blocked.sweep_fused,
+    "grid_feature_hp": _k_grid_feature_hp,  # kw: specs
+    "grid_cluster_hp": _k_grid_cluster_hp,  # kw: prior, grid
+    "ew_cluster_hp": _k_ew_cluster_hp,  # kw: a, b
+    "theta": _k_theta,
+    "slice_theta": _k_slice_theta,  # kw: w
     "slice_hp": slice_.hp,  # kw: specs, cluster
 }
 
@@ -86,9 +129,13 @@ class runner:
     """Reference-parity runner: r = runner(defn, data, state, config);
     r.run(generator, niters). Traces (assignments, joint score, active
     cluster count) are collected per sweep and exposed as host arrays.
+
+    jsonl_path: optional per-sweep record, one JSON line per sweep with the
+    joint log score, the active-cluster count, the occupancy histogram and,
+    on the last line of each `run`, the ESS of the whole score trace.
     """
 
-    def __init__(self, defn, data, state, kernel_config):
+    def __init__(self, defn, data, state, kernel_config, jsonl_path: Optional[str] = None):
         if not isinstance(state, MixtureState):
             raise TypeError(f"no runner family for state type {type(state).__name__}")
         self._defn = defn
@@ -100,6 +147,8 @@ class runner:
         self._assignment_trace = []
         self._score_trace = []
         self._k_active_trace = []
+        self._jsonl_path = jsonl_path
+        self._sweep_idx = 0
 
     def run(self, generator: torch.Generator, niters: int = 1, collect: bool = True):
         validator.validate_positive(niters, "niters")
@@ -110,8 +159,28 @@ class runner:
             self._assignment_trace.append(trace["assignments"].cpu().numpy())
             self._score_trace.append(trace["score"].cpu().numpy())
             self._k_active_trace.append(trace["k_active"].cpu().numpy())
+        if self._jsonl_path is not None:
+            self._write_jsonl(trace)
         self._warn_if_saturated()
         return self._state
+
+    def _write_jsonl(self, trace):
+        scores = trace["score"].cpu().numpy()
+        k_active = trace["k_active"].cpu().numpy()
+        counts = trace["counts"].cpu().numpy()
+        full = self.score_trace
+        ess = float(diagnostics.ess(full)) if full.shape[-1] >= 4 else None
+        with open(self._jsonl_path, "a") as f:
+            for i in range(scores.shape[0]):
+                occ = counts[i][counts[i] > 0]
+                f.write(json.dumps({
+                    "sweep": self._sweep_idx,
+                    "score_joint": float(scores[i]),
+                    "k_active": int(k_active[i]),
+                    "occupancy": np.sort(occ)[::-1].tolist(),
+                    "ess": ess if i == scores.shape[0] - 1 else None,
+                }) + "\n")
+                self._sweep_idx += 1
 
     def _warn_if_saturated(self):
         if bool(state_mod.is_saturated(self._state)):

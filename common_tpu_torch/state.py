@@ -15,6 +15,7 @@ device.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -24,6 +25,7 @@ import torch
 from common_tpu_torch import validator
 from common_tpu_torch.likelihoods import base as lik_base
 from common_tpu_torch.models import model_descriptor
+from common_tpu_torch.rng import gumbel_argmax
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +213,160 @@ def sample_crp_assignment(generator: torch.Generator, n: int, k_max: int, alpha)
             z[i] = m
             m += 1
     return torch.tensor(z, dtype=torch.int32, device=generator.device)
+
+
+# ---------------------------------------------------------------------------
+# entity ops (entity_based_state_object analog)
+# ---------------------------------------------------------------------------
+def working_copy(state: MixtureState) -> MixtureState:
+    """A state whose assignments, counts and stats are fresh copies.
+
+    The collapsed sweeps update such a copy in place, row by row, and leave
+    the caller's state unchanged. Hypers and cluster hypers are shared: no
+    entity op writes them.
+    """
+    return dataclasses.replace(
+        state,
+        assignments=state.assignments.clone(),
+        counts=state.counts.clone(),
+        stats=tuple({k: v.clone() for k, v in s.items()} for s in state.stats),
+    )
+
+
+def _row_txs(state: MixtureState, data, eid: int):
+    """Suffstat contributions of row `eid` for every feature."""
+    return [
+        lik.tx(hyper, x[eid], mask[eid])
+        for (x, mask), lik, hyper in zip(data, state.likelihoods(), state.hypers)
+    ]
+
+
+def remove_value_(state: MixtureState, data, eid: int) -> MixtureState:
+    """Unassign row `eid` in place: downdate counts and suffstats, and
+    zero-clear a slot the row leaves empty.
+
+    `eid` is a Python int; the row's old slot stays a device tensor, so
+    nothing here waits for the device.
+    """
+    old = state.assignments[eid]
+    present = old >= 0
+    safe = old.clamp(min=0).to(torch.int64).reshape(1)
+    state.counts.index_add_(0, safe, -present.to(state.counts.dtype).reshape(1))
+    emptied = (state.counts.index_select(0, safe)[0] == 0) & present
+    for txf, stats_f in zip(_row_txs(state, data, eid), state.stats):
+        sign = -present.to(next(iter(stats_f.values())).dtype)
+        lik_base.scatter_fold_(stats_f, safe, txf, sign)
+        lik_base.zero_slot_(stats_f, safe, ~emptied)
+    state.assignments[eid].fill_(-1)  # `[eid] = -1` would copy the -1 from the host and wait
+    return state
+
+
+def add_value_(state: MixtureState, data, eid: int, gid) -> MixtureState:
+    """Assign row `eid` to slot `gid` (an int or a 0-d device tensor) in place."""
+    idx = lik_base._slot(gid, state.device)
+    for txf, stats_f in zip(_row_txs(state, data, eid), state.stats):
+        lik_base.scatter_fold_(stats_f, idx, txf, 1.0)
+    state.assignments[eid] = idx[0]
+    state.counts.index_add_(0, idx, torch.ones_like(idx, dtype=state.counts.dtype))
+    return state
+
+
+def remove_value(state: MixtureState, data, eid: int) -> MixtureState:
+    """Unassign row eid: downdate counts + suffstats; zero-clear emptied slot."""
+    return remove_value_(working_copy(state), data, eid)
+
+
+def add_value(state: MixtureState, data, eid: int, gid) -> MixtureState:
+    """Assign row eid to group gid: update counts + suffstats."""
+    return add_value_(working_copy(state), data, eid, gid)
+
+
+def repad(state: MixtureState, new_k_max: int) -> MixtureState:
+    """K_max growth: pad every cluster-axis leaf with empty slots.
+
+    Returns an equivalent state with capacity `new_k_max`; pair it with
+    ``dataclasses.replace(defn, k_max=new_k_max)`` for the definition.
+    """
+    validator.validate_positive(new_k_max, "new_k_max")
+    k_old = state.k_max
+    if new_k_max < k_old:
+        raise ValueError(f"new_k_max ({new_k_max}) must be >= current k_max ({k_old})")
+    if state.fixed:
+        raise ValueError("fixed-K states have exactly K components; cannot repad")
+    if new_k_max == k_old:
+        return state
+
+    def pad(leaf):
+        extra = torch.zeros((new_k_max - k_old, *leaf.shape[1:]), dtype=leaf.dtype, device=leaf.device)
+        return torch.cat([leaf, extra])
+
+    return dataclasses.replace(
+        state,
+        counts=pad(state.counts),
+        stats=tuple({k: pad(v) for k, v in s.items()} for s in state.stats),
+    )
+
+
+def score_value(state: MixtureState, data, eid: int):
+    """[K] log p(assign row eid to each slot): CRP prior + likelihoods."""
+    logp = crp_prior_scores(state)
+    for (x, mask), lik, hyper, stats_f in zip(data, state.likelihoods(), state.hypers, state.stats):
+        s = lik.pred_logpdf(hyper, stats_f, x[eid])
+        logp = logp + s * mask[eid].to(s.dtype)
+    return logp
+
+
+# ---------------------------------------------------------------------------
+# generative surfaces (mixturemodel's sample / sample_post_pred)
+# ---------------------------------------------------------------------------
+def _draw_rows(lik, generator, hyper, stats, z):
+    """One value per entry of z from each slot's parameter draw."""
+    theta = lik.sample_params(generator, hyper, stats)
+    rows = {k: v.index_select(0, z) for k, v in theta.items()}
+    n = z.shape[0]
+    return lik.sample_value(generator, rows), torch.ones(n, dtype=torch.float32, device=z.device)
+
+
+def sample(
+    defn: MixtureDefinition,
+    generator: torch.Generator,
+    cluster_hp: Optional[Dict[str, Any]] = None,
+    feature_hps: Optional[Sequence[Dict[str, Any]]] = None,
+):
+    """Synthetic data from the model prior (mixturemodel's ``sample``): a
+    CRP partition, per-cluster parameters from each feature prior, then one
+    row per entity, on the generator's device. Returns (data columns,
+    assignment) in the ((values, mask), ...) layout `initialize` consumes.
+    """
+    dev = generator.device
+    hypers = tuple(
+        desc.canonical_hyper(None if feature_hps is None else feature_hps[f], device=dev)
+        for f, desc in enumerate(defn.models)
+    )
+    z = sample_crp_assignment(generator, defn.n, defn.k_max, (cluster_hp or {}).get("alpha", 1.0))
+    data = tuple(
+        _draw_rows(desc.likelihood, generator, hyper,
+                   desc.likelihood.init_stats(hyper, (defn.k_max,)), z.long())
+        for desc, hyper in zip(defn.models, hypers)
+    )
+    return data, z
+
+
+def sample_post_pred(state: MixtureState, generator: torch.Generator, size: int = 1):
+    """Draw `size` hypothetical new rows from the posterior predictive
+    (mixturemodel's ``state.sample_post_pred``): cluster ~ CRP seating
+    weights (a fresh cluster takes the alpha slot and draws from the
+    prior), then a value from that cluster's posterior parameter draw.
+    Returns (data columns, cluster ids [size]).
+    """
+    validator.validate_positive(size, "size")
+    logw = crp_prior_scores(state)
+    z = gumbel_argmax(logw.expand(size, state.k_max), generator)
+    data = tuple(
+        _draw_rows(lik, generator, hyper, stats_f, z)
+        for lik, hyper, stats_f in zip(state.likelihoods(), state.hypers, state.stats)
+    )
+    return data, z
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card, and the collapsed sweep's card-only properties (no host wait, bit-exact resume).
 
 Every test here is marked `cuda` and skips without a CUDA device. The file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -110,3 +111,47 @@ def test_cuda_scatter_kernel_matches_plain(cuda_device):
     got = ss.fused_scatter_stats(X, z, 9)
     want = ss.scatter_stats_plain(X, z, 9)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _collapsed_problem(n, device):
+    """Rows around three planted 2-D centers, the NIW DPMM of BASELINE config 1."""
+    from common_tpu_torch import models, rng, state as st
+
+    r = np.random.default_rng(0)
+    centers = np.array([[-4.0, 0.0], [4.0, 0.0], [0.0, 5.0]])
+    X = (centers[r.integers(0, 3, n)] + r.normal(scale=0.6, size=(n, 2))).astype(np.float32)
+    data = ((torch.from_numpy(X).to(device), torch.ones(n, device=device)),)
+    defn = st.model_definition(n, [models.niw(2)], k_max=16)
+    return defn, data, st.initialize(defn, data, rng(0, device).generator, cluster_hp={"alpha": 1.0})
+
+
+@pytest.mark.cuda
+def test_cuda_collapsed_sweep_never_waits_and_resumes_bit_exactly(cuda_device):
+    """One collapsed sweep runs under set_sync_debug_mode("error"); a run
+    checkpointed after one sweep, with its generator, and resumed equals
+    the uninterrupted run bit for bit."""
+    from common_tpu_torch import io, rng, scalar_functions as sf
+    from common_tpu_torch.kernels import gibbs
+    from common_tpu_torch.runner import run_chain
+
+    defn, data, s0 = _collapsed_problem(200, cuda_device)
+    g = rng(1, cuda_device).generator
+    gibbs.assign(s0, data, g)  # first use: library set-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gibbs.assign_resample(s0, data, g, m=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out.counts.sum()) == 200
+
+    config = [("assign", {}), ("grid_cluster_hp", {"prior": sf.log_exponential(1.0),
+                                                   "grid": np.geomspace(0.1, 10, 30)})]
+    straight, trace = run_chain(s0, data, rng(5, cuda_device).generator, 3, config)
+    g = rng(5, cuda_device).generator
+    half, t1 = run_chain(s0, data, g, 1, config)
+    restored, extra = io.deserialize(io.serialize(half, extra={"gen": g}), device=cuda_device)
+    resumed, t2 = run_chain(restored, data, extra["gen"], 2, config)
+    assert torch.equal(trace["assignments"], torch.cat([t1["assignments"], t2["assignments"]]))
+    assert torch.equal(trace["score"], torch.cat([t1["score"], t2["score"]]))
+    assert torch.equal(straight.stats[0]["sum_xxT"], resumed.stats[0]["sum_xxT"])

@@ -28,6 +28,12 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.kernels.slice_, common_tpu_torch.ops.linear_assign\n"
         "import common_tpu_torch.parallel, common_tpu_torch.utils.diagnostics\n"
         "import common_tpu_torch.scalar_functions, common_tpu_torch.likelihoods.bbv\n"
+        "import common_tpu_torch.kernels.gibbs, common_tpu_torch.io, common_tpu_torch.io.checkpoint\n"
+        "import common_tpu_torch.query, common_tpu_torch.data, common_tpu_torch.data.recarray\n"
+        "import common_tpu_torch.likelihoods.bb, common_tpu_torch.likelihoods.bbnc\n"
+        "import common_tpu_torch.likelihoods.bnb, common_tpu_torch.likelihoods.dd\n"
+        "import common_tpu_torch.likelihoods.dm, common_tpu_torch.likelihoods.gp\n"
+        "import common_tpu_torch.likelihoods.nich\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
