@@ -11,15 +11,17 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Each kernel against its plain PyTorch version on the card:
    assignment on well-separated clusters (n=16421, D=256, K=64, dense
    triangular B_k) against the plain sampler, and draw for draw against
-   the plain scores plus the kernel's own Philox noise, there and on
-   clusters told apart by B_k alone; its sampling distribution (n=64, D=4,
-   K=5, 300 seeds); the multi-chain assignment draw for draw on dense,
-   non-triangular B_k (n=16421, D=256, K=64, C=4), equal to the
-   single-chain kernel at C=1, and its distribution with independent
-   chains (n=64, D=4, K=5, C=3, 300 seeds); the linear assignment draw for
-   draw at 100k x 64, K=32 and at a ragged N with D=300, and its
-   distribution; scatter stats at 1M x 256, K=64 with masked rows and a
-   ragged N, and at a small shape against float64 on the host.
+   the plain scores plus the kernel's own Philox noise, there, on
+   clusters told apart by B_k alone, and at the widest D the kernel takes
+   (n=4113, D=384, K=16) and a D that fills no panel (n=5003, D=203,
+   K=33); its sampling distribution (n=64, D=4, K=5, 300 seeds); the
+   multi-chain assignment draw for draw on dense, non-triangular B_k
+   (n=16421, D=256, K=64, C=4), equal to the single-chain kernel at C=1,
+   and its distribution with independent chains (n=64, D=4, K=5, C=3, 300
+   seeds); the linear assignment draw for draw at 100k x 64, K=32 and at a
+   ragged N with D=300, and its distribution; scatter stats at 1M x 256,
+   K=64 with masked rows and a ragged N (and exactly symmetric), and at a
+   small shape against float64 on the host.
 3. The main path at 1M x 256, K_max=64: model_definition -> initialize
    (CRP) -> runner(..., [("assign_blocked_fused", {})]); one first sweep,
    timed apart because it carries the one-time CUDA library set-up, then
@@ -27,9 +29,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    4096 held-out rows. Checks finite scores, counts, kernel launch counts,
    the stats against the plain restat, k_active and the held-out log
    density; checks the assignment kernel draw for draw on the main path's
-   own inputs; times fused and plain sweeps and each kernel against its
-   plain version on those inputs; traces one more sweep for device time by
-   kernel and the device's idle share.
+   own inputs, and the scatter kernel against float64 (computed on the
+   card) on the largest cluster, with sum_xxT equal to its transpose bit
+   for bit; times fused and plain sweeps, and each kernel against its plain
+   version, its bound and its library yardstick on those inputs (the
+   scatter wrapper's sort and search apart from its kernels); traces one
+   more sweep for device time by kernel and the device's idle share.
 4. Path A, multi-chain, on the data of phase 3: four CRP initialisations,
    stacked; one first sweep_chains(..., fused=True) timed apart, then 5
    sweeps with the counts set to 0 just before, each followed by every
@@ -68,6 +73,17 @@ the kernel's choice below the plain maximum (0 where they agree, at most
 the fp32 tie band on a tie), with `mismatch` the rows outside the tie band
 that differ and `tie_rows` the rows inside it, on their path's own inputs.
 Each `launches` is the count from its path's driven run (phases 3, 4, 5).
+`bound_ms` is the least time the H100 could take for the kernel's work on
+this run's inputs: the larger of its operations, as three TF32 passes on
+the tensor cores (fp32 accuracy by 3xTF32 split products, 495 TFLOP/s),
+and its bytes (each input read once, each output written once, 3.35
+TB/s); `bound_fp32_ms` gives the fp32 CUDA-core figure (67 TFLOP/s)
+beside it. `library_ms` times one PyTorch call doing the same products in
+fp32 (named under `library`), which the port never calls: for the
+Gaussian assignment, X times the stacked B_k^T over row slices; for the
+scatter, torch.mm(X.T, X); for the linear assignment, torch.addmm. The
+scatter entry's `ms` is its two kernels with their chunk schedule,
+`sort_ms` the sort and search before them, `wrapper_ms` the whole call.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Needs a CUDA card: without one it exits 1.
@@ -92,6 +108,15 @@ N6, K6, SWEEPS6, LAST6, TRACE_ROWS6 = 10_000, 32, 13, 4, 300  # config 1, collap
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
 INIT6, GEN6 = 5, 105
+
+
+# NVIDIA H100 SXM published peaks (data sheet, dense): TF32 on the tensor
+# cores, fp32 on the CUDA cores, HBM3 bandwidth. A kernel's bound_ms counts
+# its fp32-accurate products as three TF32 passes (3xTF32 split products).
+PEAK_TF32 = 495e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+LIB_ROWS = 65536  # row slice of the library products that stand in for kernels 1 and 4
 
 
 class SmokeFailure(Exception):
@@ -130,6 +155,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time of `flops` fp32-accurate operations and `nbytes` moved
+    (each input read once, each output written once): bound_ms, its
+    resource, and the fp32 CUDA-core figure beside it."""
+    op_ms = 1e3 * 3 * flops / PEAK_TF32
+    byte_ms = 1e3 * nbytes / PEAK_BYTES
+    return {"bound_ms": max(op_ms, byte_ms), "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "bound_fp32_ms": max(1e3 * flops / PEAK_FP32, byte_ms)}
+
+
+def gaussian_yardsticks(x, mu, binv, n_chains: int = 1) -> dict:
+    """Kernel 1 or 4's bound and its library yardstick: fp32 torch.matmul of
+    X [rows, D] by the stacked B_k^T [D, slots * D], over LIB_ROWS-row slices
+    (a quarter of that with C > 1), summed; the product alone."""
+    import torch
+
+    (n, d), slots = x.shape, mu.shape[0]
+    flops = 2.0 * n * slots * d * d
+    nbytes = 4.0 * (n * d + slots * d + slots * d * d + slots + n_chains * n)
+    bt = binv.transpose(1, 2).permute(1, 0, 2).reshape(d, slots * d)
+    rows = LIB_ROWS // n_chains
+    out = torch.empty((rows, slots * d), device=x.device)
+
+    def product():
+        for a in range(0, n, rows):
+            b = min(n, a + rows)
+            torch.matmul(x[a:b], bt, out=out[:b - a])
+
+    lib = cuda_ms(product, 2)
+    del out
+    return {**bound(flops, nbytes), "library_ms": lib,
+            "library": f"torch.matmul(X[{rows} rows], [{d}, {slots * d}]) over {n} rows, fp32"}
+
+
 def profile_sweep(fn):
     """Device time by kernel, the idle share and the count of device kernels
     and copies, over one traced call of fn(); returns (idle share, count)."""
@@ -165,7 +224,10 @@ def phase_environment() -> dict:
 
     from common_tpu_torch.ops import _build
 
-    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    # the plain versions and the library yardsticks run in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     line = card_line()
     log(f"card: {line}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -336,6 +398,14 @@ def _check_gaussian(dev, g) -> dict:
         f"{moved:.4f} (bar > 0.5)")
     require(moved > 0.5, "the covariance check does not depend on B_k's off-diagonal part")
 
+    # the widest D the kernel takes, and a D that fills no panel or 16-byte row
+    for n, d, k in ((4096 + 17, 384, 16), (5000 + 3, 203, 33)):
+        X, mu, binv, base = _covariance_problem(n, d, k, d, dev)
+        seed = _seed(d, dev)
+        z = fused_gaussian_assign(X, mu, binv, base, seed)
+        require_exact(assign_exact_check(z, X, mu, binv, base, seed),
+                      f"assign n={n} D={d} K={k} by covariance, draw for draw")
+
     # distribution: per-row frequencies against the softmax
     X_s, mu_s, base_s = _softmax_problem(64, 4, 5, 1, dev)
     binv_s = torch.eye(4, device=dev).expand(5, 4, 4).contiguous()
@@ -443,9 +513,11 @@ def _check_scatter(dev, g) -> None:
     want = scatter_stats_plain(Xb, zb, K_MAX)
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
+    symmetric = torch.equal(got, got.transpose(1, 2))
     log(f"scatter N={n_big} D={D} K={K_MAX}: max|kernel - plain| {err:.3e}, "
-        f"bar 1e-4 * {scale:.3e}")
+        f"bar 1e-4 * {scale:.3e}; equal to its transpose bit for bit: {symmetric}")
     require(err <= 1e-4 * scale, "scatter stats disagree at full size")
+    require(symmetric, "scatter stats are not exactly symmetric")
     del Xb, zb, got, want
 
     # at a small shape against float64 on the host
@@ -587,15 +659,42 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     exact = assign_exact_check(ga.fused_gaussian_assign(x, mu, binv, base, seed),
                                x, mu, binv, base, seed)
     require_exact(exact, f"assign on the main path's inputs ({N}x{D}, K={K_MAX}), draw for draw")
-    zi = torch.where(mask > 0, s.assignments, K_MAX)
+    zi = torch.where(mask > 0, s.assignments, K_MAX).to(torch.int32)
     k1 = cuda_ms(lambda: ga.fused_gaussian_assign(x, mu, binv, base, seed), 3)
     p1 = cuda_ms(lambda: ga.gaussian_assign_plain(x, mu, binv, base, gen), 2)
-    k2 = cuda_ms(lambda: ss.fused_scatter_stats(x, zi, K_MAX), 3)
+    y1 = gaussian_yardsticks(x, mu, binv)
+    log(f"gaussian_assign {N}x{D} K={K_MAX}: kernel {k1:.2f} ms, plain {p1:.2f} ms; bound "
+        f"{y1['bound_ms']:.2f} ms ({y1['bound_by']}, 3xTF32; fp32 CUDA cores {y1['bound_fp32_ms']:.2f} ms), "
+        f"share {y1['bound_ms'] / k1:.3f}; library {y1['library']}: {y1['library_ms']:.2f} ms")
+
+    # kernel 2: the sort and the kernels timed apart; float64 on the largest cluster
+    order, offsets = ss.sort_by_cluster(zi, K_MAX)
+    sort_ms = cuda_ms(lambda: ss.sort_by_cluster(zi, K_MAX), 5)
+    k2 = cuda_ms(lambda: ss.scatter_sorted(x, order, offsets), 5)
+    w2 = cuda_ms(lambda: ss.fused_scatter_stats(x, zi, K_MAX), 3)
     p2 = cuda_ms(lambda: ss.scatter_stats_plain(x, zi, K_MAX), 2)
-    err2 = (ss.fused_scatter_stats(x, zi, K_MAX) - ss.scatter_stats_plain(x, zi, K_MAX)).abs().max().item()
-    log(f"gaussian_assign {N}x{D} K={K_MAX}: kernel {k1:.2f} ms, plain {p1:.2f} ms")
-    log(f"scatter_stats {N}x{D} K={K_MAX} (main-path z): kernel {k2:.2f} ms, plain {p2:.2f} ms, "
-        f"max abs err {err2:.3e}")
+    lib2 = cuda_ms(lambda: torch.mm(x.T, x), 3)
+    got = ss.fused_scatter_stats(x, zi, K_MAX)
+    err2 = (got - ss.scatter_stats_plain(x, zi, K_MAX)).abs().max().item()
+    counts = offsets[1:] - offsets[:-1]
+    kbig = int(torch.argmax(counts))
+    rows = x[order[int(offsets[kbig]):int(offsets[kbig + 1])].long()].double()
+    want64 = rows.T @ rows
+    rel64 = ((got[kbig].double() - want64).abs().max() / want64.abs().max()).item()
+    symmetric = torch.equal(got, got.transpose(1, 2))
+    n_in = int(offsets[-1])
+    y2 = {**bound(float(n_in) * D * (D + 1), 4.0 * (N * D + N + K_MAX * D * D)),
+          "library_ms": lib2, "library": f"torch.mm(X.T, X), X [{N}, {D}], fp32"}
+    log(f"scatter_stats {N}x{D} K={K_MAX} (main-path z): kernels {k2:.3f} ms, sort and search "
+        f"{sort_ms:.3f} ms, the whole wrapper {w2:.3f} ms; plain {p2:.2f} ms; max abs err {err2:.3e}; "
+        f"bound {y2['bound_ms']:.3f} ms ({y2['bound_by']}, 3xTF32; fp32 CUDA cores "
+        f"{y2['bound_fp32_ms']:.3f} ms), share {y2['bound_ms'] / k2:.3f}; library {y2['library']}: "
+        f"{lib2:.3f} ms")
+    log(f"scatter_stats on the largest cluster ({rows.shape[0]} rows) against float64 on the card: "
+        f"{rel64:.3e} relative (bar 1e-5); sum_xxT equal to its transpose bit for bit: {symmetric}")
+    require(rel64 <= 1e-5, "scatter stats off float64 on the largest cluster")
+    require(symmetric, "scatter stats are not exactly symmetric")
+    del rows, want64, got
     idle, _ = profile_sweep(lambda: run.run(gen, 1))
     return {
         "kernels": [
@@ -606,12 +705,13 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
              "max_abs_err": exact["shortfall"],
              "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
              "agree": kernel_checks["assign_agree"],
-             "ms": k1, "plain_ms": p1},
+             "ms": k1, "plain_ms": p1, **y1},
             {"name": "scatter_stats", "route": "cuda",
              "source": "common_tpu_torch/csrc/suffstat.cu",
              "replaces": "common_tpu/ops/suffstat.py:75",
              "launches": launches["suffstat"],
-             "max_abs_err": err2, "ms": k2, "plain_ms": p2},
+             "max_abs_err": err2, "f64_rel_err": rel64, "symmetric": symmetric,
+             "ms": k2, "sort_ms": sort_ms, "wrapper_ms": w2, "plain_ms": p2, **y2},
         ],
         "sweeps_per_s": N_SWEEPS / run_s,
         "fused_sweep_ms": fused_ms, "plain_sweep_ms": plain_ms,
@@ -709,7 +809,11 @@ def phase_chains(headline: dict) -> dict:
                           f"draw for draw")
     k4 = cuda_ms(lambda: ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C), 3)
     p4 = cuda_ms(lambda: ga.gaussian_assign_chains_plain(x, mu, minv, base, C, gen), 2)
-    log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: kernel {k4:.2f} ms, plain {p4:.2f} ms")
+    y4 = gaussian_yardsticks(x, mu, minv, C)
+    log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: kernel {k4:.2f} ms, plain {p4:.2f} ms; "
+        f"bound {y4['bound_ms']:.2f} ms ({y4['bound_by']}, 3xTF32; fp32 CUDA cores "
+        f"{y4['bound_fp32_ms']:.2f} ms), share {y4['bound_ms'] / k4:.3f}; library {y4['library']}: "
+        f"{y4['library_ms']:.2f} ms")
     idle, _ = profile_sweep(lambda: blocked.sweep_chains(states, data, gen, fused=True))
     return {
         "kernel": {"name": "gaussian_assign_chains", "route": "cuda",
@@ -718,7 +822,7 @@ def phase_chains(headline: dict) -> dict:
                    "launches": launches["gaussian_assign_chains"],
                    "max_abs_err": exact["shortfall"],
                    "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
-                   "ms": k4, "plain_ms": p4},
+                   "ms": k4, "plain_ms": p4, **y4},
         "chain_sweeps_per_s": C * CHAIN_SWEEPS / run_s,
         "sweep_chains_ms": float(np.median(sweep_ms)),
         "split_rhat": rhat, "ess": ess,
@@ -834,14 +938,19 @@ def phase_config2() -> dict:
                           f"linear_assign on path B's inputs ({N2}x{D2}, K={K2}), draw for draw")
     k3 = cuda_ms(lambda: la.fused_linear_assign(x, W, base, seed), 20)
     p3 = cuda_ms(lambda: la.linear_assign_plain(x, W, base, gen), 20)
-    log(f"linear_assign {N2}x{D2} K={K2}: kernel {k3:.4f} ms, plain {p3:.4f} ms")
+    y3 = {**bound(2.0 * N2 * K2 * D2, 4.0 * (N2 * D2 + K2 * D2 + K2 + N2)),
+          "library_ms": cuda_ms(lambda: torch.addmm(base, x, W.T), 20),
+          "library": f"torch.addmm(base, X, W.T), X [{N2}, {D2}], W [{K2}, {D2}], fp32"}
+    log(f"linear_assign {N2}x{D2} K={K2}: kernel {k3:.4f} ms, plain {p3:.4f} ms; bound "
+        f"{y3['bound_ms']:.4f} ms ({y3['bound_by']}), share {y3['bound_ms'] / k3:.3f}; library "
+        f"{y3['library']}: {y3['library_ms']:.4f} ms")
     return {
         "kernel": {"name": "linear_assign", "route": "cuda",
                    "source": "common_tpu_torch/csrc/linear_assign.cu",
                    "replaces": "common_tpu/ops/linear_assign.py:67",
                    "launches": launches, "max_abs_err": exact["shortfall"],
                    "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
-                   "ms": k3, "plain_ms": p3},
+                   "ms": k3, "plain_ms": p3, **y3},
         "iterations_per_s": ITERS2 / run_s,
         "fused_sweep_ms": sweep_med, "slice_hp_ms": hp_med, "slice_hp_idle_share": hp_idle,
         "slice_eval_ms": waited_ms, "slice_eval_queued_ms": queued_ms,

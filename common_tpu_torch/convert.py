@@ -29,8 +29,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def state_from_numpy(leaves: Dict[str, Any], device="cpu") -> MixtureState:
-    """The port's state from numpy leaves, with its tensors on `device`."""
+def state_from_numpy(leaves: Dict[str, Any], device="cuda") -> MixtureState:
+    """The port's state from numpy leaves, with its tensors on `device` (the
+    card unless the caller names another; without a card the default raises)."""
     def tensors(d):
         return {k: _to_tensor(v, device) for k, v in d.items()}
 

@@ -16,27 +16,51 @@
 // argmax) at each chain's first slot and writes z[c, row] at its last, as
 // the Pallas kernel does; so X is read once for all chains.
 //
-// What bounds it on Hopper: N*K*D^2 multiply-adds (4.3e12 at 1M x 256,
-// K = 64), in fp32 FMA on the CUDA cores -- no TF32, no tensor cores, since
-// reduced precision in this quadratic form biases the sampler
-// (common_tpu/likelihoods/niw.py, sample_params_prec). So the design aims
-// at keeping the FMA pipes fed from registers.
+// What bounds it on Hopper: 2*N*K*D^2 operations (8.4e12 at 1M x 256,
+// K = 64), which must keep fp32 accuracy: a single TF32 pass in this
+// quadratic form biases the sampler (common_tpu/likelihoods/niw.py,
+// sample_params_prec). They run on the tensor cores as 3xTF32 split
+// products (tf32x3.cuh): three TF32 passes, a bound of 3 * 8.4e12 / 495
+// TFLOP/s = 50.8 ms, against 125 ms for fp32 on the CUDA cores. The
+// mma.sync instruction this kernel uses runs at about half of that peak on
+// an H100 (the loop's steady state measured near 109 ms), so the kernel is
+// bound by the tensor cores' mma.sync rate.
 //
-// Design: one block takes TILE_N = 128 rows and loops over the K clusters;
-// the row tile stays in shared memory (transposed) for the whole launch.
-// For each cluster, y = (x - mu_k) B_k^T is computed as a register-tiled
-// product: each of the 256 threads owns an 8-row x 8-output tile of y
-// (16 x 16 threads cover 128 rows x 128 outputs, and D = 256 takes two such
-// output chunks), so each step over the inner dimension does 64 FMAs from
-// 4 shared-memory vector loads (plus 8 subtractions forming x - mu in
-// registers). One B_k at D = 256 is 256 KB, more than a block's 227 KB of
-// shared memory, so B_k streams through shared memory in panels of
-// 128 outputs x 32 inputs; the next panel is fetched into registers while
-// the current one is used. The squares of each finished output chunk fold
-// into 8 per-row partial forms, which a half-warp shuffle sums at the end
-// of each cluster. The running (max, argmax) lives in registers and is
-// updated only on a strictly greater score, so the lowest k wins ties, as
-// in Pallas and torch.argmax.
+// Design: one block of 8 warps takes 128 rows; its row tile stays in shared
+// memory for the whole launch. For each slot k, Y = (X_tile - mu_k) B_k^T
+// runs as 128 rows x 256 outputs at a time (one output chunk at D = 256),
+// each warp a 64 x 64 share of it in 4 x 8 m16n8k8 accumulator tiles. B_k
+// is row-major [out][in], which is the K-major layout the instruction's B
+// operand takes. One B_k at D = 256 is 256 KB, more than a block's 227 KB
+// of shared memory, so B_k streams through two stages of 256 outputs x 32
+// inputs (with the matching 32 values of mu_k), filled by cp.async one
+// panel ahead of the one in use, no register staging. Each warp loads its
+// fragments from shared memory, subtracts mu_k in fp32 as the plain
+// version does (centring before the split: the expanded X B_k^T - B_k mu_k
+// would subtract two products that grow with ||x|| to get the small y of a
+// row's own cluster), splits them into TF32 halves, then runs the three
+// passes. Within each 8-input step the inputs are
+// permuted so that fragment columns t and t + 4 are neighbours in memory
+// (8-byte loads); the row strides (+8 floats) keep those loads free of bank
+// conflicts. Each panel costs one barrier, so the panels are as deep as
+// shared memory allows, and the next panel's copies are queued after the
+// first step's products (by counters, no division), so the tensor cores
+// are not left idle behind them. Above D = 256 the 128-row tile leaves
+// less room, so the warps take 64 x 32 shares of 128-output chunks and the
+// panels 16 inputs; every D up to `gaussian_assign_max_dim` (384 on an
+// H100) runs.
+//
+// Epilogue per slot: each thread squares its accumulators into 8 per-row
+// partial forms, the 4 lanes of a quad that share rows add theirs by
+// shuffles, the 4 warps that share rows add through shared memory, and 128
+// threads, one per row, add base_k and the Philox Gumbel and update the
+// running (max, argmax) in registers, only on a strictly greater score, so
+// the lowest k wins ties, as in Pallas and torch.argmax.
+//
+// Shapes: a ragged N and any D run with zero padding in shared memory,
+// which adds exactly 0: rows past N, inputs and outputs past D. Rows of
+// 16-byte-aligned width go by 16-byte copies, other widths by 4-byte
+// copies.
 //
 // Gumbel noise: Philox4x32-10 keyed on the per-sweep seed with counter
 // (row, k, c), k the slot within chain c, so the draws do not depend on the
@@ -48,210 +72,292 @@
 #include <cstdint>
 
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kTileN = 128;           // rows per block
-constexpr int kChunk = 128;           // outputs of y per chunk
-constexpr int kPanel = 32;            // inputs (columns of B_k) per panel
-constexpr int kThreads = 256;         // 16 row groups x 16 output groups
-constexpr int kLd = 132;              // row stride of xt and bt: 16-byte aligned
-constexpr int kPanelLoads = kChunk * kPanel / kThreads;  // panel values per thread
+constexpr int kRows = 128;     // rows per block
+constexpr int kThreads = 256;  // 8 warps: 2 along rows x 4 along outputs
+constexpr int kWarpRows = 64;  // rows of one warp's share
+constexpr int kMT = kWarpRows / 16;  // m16 tiles per warp
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// Where value `idx` of a panel goes: input jj (0..31), output ii (0..127).
-// A warp covers 8 consecutive inputs of 4 outputs, so its global reads are
-// whole 32-byte sectors and its transposed stores hit 32 distinct banks.
-__device__ __forceinline__ void panel_coords(int idx, int& jj, int& ii) {
-  jj = (idx & 7) | (((idx >> 5) & 3) << 3);
-  ii = ((idx >> 3) & 3) | ((idx >> 7) << 2);
-}
+// One tiling: kPanel inputs per stage, kStages stages, kWarpCols outputs
+// per warp (the chunk is 4 * kWarpCols outputs).
+template <int kPanel, int kStages, int kWarpCols>
+struct Tiling {
+  static constexpr int kChunk = 4 * kWarpCols;           // outputs of y per chunk
+  static constexpr int kNT = kWarpCols / 8;              // n8 tiles per warp
+  static constexpr int kBLd = kPanel + 8;                // row stride of a B panel
+  static constexpr int kStageFloats = kChunk * kBLd + kPanel;  // B panel, then the mu slice
 
-// Fetch panel `t` of the flattened (cluster, chunk, panel) sequence into
-// registers: bt[jj][ii] = B_k[c * kChunk + ii][p * kPanel + jj], 0 outside D.
-__device__ __forceinline__ void fetch_panel(const float* __restrict__ binv, int t, int n_chunks,
-                                            int n_panels, int D, float (&pre)[kPanelLoads]) {
-  const int k = t / (n_chunks * n_panels);
-  const int rem = t - k * n_chunks * n_panels;
-  const int i0 = (rem / n_panels) * kChunk;
-  const int j0 = (rem % n_panels) * kPanel;
-  const float* bk = binv + static_cast<size_t>(k) * D * D;
-#pragma unroll
-  for (int r = 0; r < kPanelLoads; ++r) {
-    int jj, ii;
-    panel_coords(threadIdx.x + r * kThreads, jj, ii);
-    const int i = i0 + ii, j = j0 + jj;
-    pre[r] = (i < D && j < D) ? bk[static_cast<size_t>(i) * D + j] : 0.0f;
+  // Row stride of the row tile: 8 mod 16 floats, so the 8-byte fragment
+  // loads of a half-warp hit 32 distinct banks (kBLd likewise).
+  __host__ __device__ static int x_ld(int D) { return round_up(D, kPanel) + 8; }
+
+  static size_t smem_bytes(int D) {
+    return sizeof(float) * (static_cast<size_t>(kRows) * x_ld(D) +
+                            static_cast<size_t>(kStages) * kStageFloats + 4 * kRows);
   }
-}
+};
 
-// K is the number of slots per chain; C the number of chains (1 unless
-// kChains). z is [C, N].
-template <bool kChains>
+template <bool kChains, int kPanel, int kStages, int kWarpCols>
 __global__ void __launch_bounds__(kThreads, 1)
 gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                        const float* __restrict__ binv, const float* __restrict__ base,
-                       const int* __restrict__ seed_ptr, int* __restrict__ z, int N,
-                       int D, int K, int C) {
+                       const int* __restrict__ seed_ptr, int* __restrict__ z, int N, int D,
+                       int K, int C, bool vec) {
+  using namespace tf32x3;
+  using Tl = Tiling<kPanel, kStages, kWarpCols>;
+  constexpr int kChunk = Tl::kChunk, kNT = Tl::kNT, kBLd = Tl::kBLd, kStageFloats = Tl::kStageFloats;
   extern __shared__ float4 smem4[];
-  const int Dp = round_up(D, kPanel);
-  float* xt = reinterpret_cast<float*>(smem4);  // [Dp][kLd], row tile transposed
-  float* bt = xt + static_cast<size_t>(Dp) * kLd;  // [kPanel][kLd], one panel of B_k^T
-  float* mus = bt + kPanel * kLd;                 // [Dp], mu_k
+  const int xld = Tl::x_ld(D);
+  float* xs = reinterpret_cast<float*>(smem4);            // [kRows][xld] row tile
+  float* stages = xs + static_cast<size_t>(kRows) * xld;  // kStages x (B panel, mu slice)
+  float* qs = stages + kStages * kStageFloats;            // [4][kRows] forms by warp column
 
-  const int tid = threadIdx.x;
-  const int tn = tid & 15;  // outputs 4tn..4tn+3 and 64+4tn..64+4tn+3 of a chunk
-  const int tm = tid >> 4;  // rows 8tm..8tm+7 of the tile
-  const int row0 = blockIdx.x * kTileN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // rows wm*64.., outputs wn*kWarpCols.. of a chunk
+  const int g = lane >> 2, t = lane & 3;    // the fragment layouts' group and thread
+  const int row0 = blockIdx.x * kRows;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  const int n_chunks = (D + kChunk - 1) / kChunk;
+  const int Dp = round_up(D, kPanel);
   const int n_panels = Dp / kPanel;
-  const int per_cluster = n_chunks * n_panels;
-  const int T = C * K * per_cluster;
+  const int per_slot = ((D + kChunk - 1) / kChunk) * n_panels;
+  const int T = C * K * per_slot;  // panels over all slots, chunks and inputs
 
-  for (int idx = tid; idx < kTileN * Dp; idx += kThreads) {
-    const int r = idx / Dp, j = idx - r * Dp;
-    const int row = row0 + r;
-    xt[j * kLd + r] = (row < N && j < D) ? X[static_cast<size_t>(row) * D + j] : 0.0f;
+  // Queue the next panel of the flattened (slot, chunk, input panel)
+  // sequence into its stage, with the matching slice of mu_k; always commit
+  // a group, so the wait below counts uniformly. The counters advance by
+  // one panel a call, so no division runs per panel.
+  int nx_p = 0, nx_s = 0, nx_o0 = 0, nx_i0 = 0, nx_st = 0;
+  auto enqueue = [&]() {
+    if (nx_p < T) {
+      float* bs = stages + nx_st * kStageFloats;
+      float* ms = bs + kChunk * kBLd;
+      const float* bk = binv + static_cast<size_t>(nx_s) * D * D;
+      const float* mk = mu + static_cast<size_t>(nx_s) * D;
+      const int o0 = nx_o0, i0 = nx_i0;
+      if (vec) {
+        constexpr int kPieces = kPanel / 4;  // 16-byte pieces of a panel row
+#pragma unroll
+        for (int c = tid; c < kChunk * kPieces; c += kThreads) {
+          const int r = c / kPieces, q = (c % kPieces) * 4;
+          const bool in = o0 + r < D && i0 + q < D;
+          cp_async16(bs + r * kBLd + q, in ? bk + static_cast<size_t>(o0 + r) * D + i0 + q : bk,
+                     in ? 16 : 0);
+        }
+        if (tid < kPieces) {
+          const bool in = i0 + tid * 4 < D;
+          cp_async16(ms + tid * 4, in ? mk + i0 + tid * 4 : mk, in ? 16 : 0);
+        }
+      } else {
+        for (int c = tid; c < kChunk * kPanel; c += kThreads) {
+          const int r = c / kPanel, q = c % kPanel;
+          const bool in = o0 + r < D && i0 + q < D;
+          cp_async4(bs + r * kBLd + q, in ? bk + static_cast<size_t>(o0 + r) * D + i0 + q : bk,
+                    in ? 4 : 0);
+        }
+        if (tid < kPanel) {
+          const bool in = i0 + tid < D;
+          cp_async4(ms + tid, in ? mk + i0 + tid : mk, in ? 4 : 0);
+        }
+      }
+      ++nx_p;
+      nx_st = nx_st + 1 == kStages ? 0 : nx_st + 1;
+      if ((nx_i0 += kPanel) >= Dp) {
+        nx_i0 = 0;
+        if ((nx_o0 += kChunk) >= D) {
+          nx_o0 = 0;
+          ++nx_s;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int p = 0; p < kStages - 1; ++p) enqueue();
+
+  // the row tile, zero past N and past D
+  if (vec) {
+    const int per_row = Dp / 4;
+    for (int c = tid; c < kRows * per_row; c += kThreads) {
+      const int r = c / per_row, j = (c - r * per_row) * 4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row0 + r < N && j < D) v = *reinterpret_cast<const float4*>(X + static_cast<size_t>(row0 + r) * D + j);
+      *reinterpret_cast<float4*>(xs + r * xld + j) = v;
+    }
+  } else {
+    for (int c = tid; c < kRows * Dp; c += kThreads) {
+      const int r = c / Dp, j = c - r * Dp;
+      xs[r * xld + j] = (row0 + r < N && j < D) ? X[static_cast<size_t>(row0 + r) * D + j] : 0.0f;
+    }
   }
 
-  // lanes tn = 0..7 own row 8tm + tn of the running argmax
-  const int my_row = row0 + tm * 8 + tn;
-  float best = -INFINITY;
+  float acc[kMT][kNT][4];
+  float q[kMT][2];         // partial forms of rows wm*64 + i*16 + g (+ 8)
+  float best = -INFINITY;  // threads tid < kRows own row row0 + tid
   int arg = 0;
 
-  float pre[kPanelLoads];
-  fetch_panel(binv, 0, n_chunks, n_panels, D, pre);
-  float acc[8][8];
-  float q[8];
+  for (int p = 0; p < T; ++p) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // panel p has landed; the stage of panel p - 1 is free
 
-  for (int t = 0; t < T; ++t) {
-    const int k = t / per_cluster;  // slot over all chains
-    const int rem = t - k * per_cluster;
-    const int p = rem % n_panels;
-    const bool first_of_cluster = rem == 0;
-    const bool last_of_chunk = p == n_panels - 1;
-
-    __syncthreads();  // the last panel (and, at a new cluster, mu) is consumed
+    const int s = p / per_slot;  // slot over all chains
+    const int rem = p - s * per_slot;
+    const int ip = rem % n_panels;
+    if (rem == 0) {
 #pragma unroll
-    for (int r = 0; r < kPanelLoads; ++r) {
-      int jj, ii;
-      panel_coords(tid + r * kThreads, jj, ii);
-      bt[jj * kLd + ii] = pre[r];
+      for (int i = 0; i < kMT; ++i) q[i][0] = q[i][1] = 0.0f;
     }
-    if (first_of_cluster) {
-      for (int j = tid; j < Dp; j += kThreads) mus[j] = j < D ? mu[static_cast<size_t>(k) * D + j] : 0.0f;
-    }
-    __syncthreads();
-    if (t + 1 < T) fetch_panel(binv, t + 1, n_chunks, n_panels, D, pre);
-
-    if (first_of_cluster) {
+    if (ip == 0) {
 #pragma unroll
-      for (int a = 0; a < 8; ++a) q[a] = 0.0f;
-    }
-    if (p == 0) {
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
+        for (int j = 0; j < kNT; ++j)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
-      }
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
     }
 
-    const int j0 = p * kPanel;
-#pragma unroll 4
-    for (int jj = 0; jj < kPanel; ++jj) {
-      const float m = mus[j0 + jj];
-      const float4 xa = *reinterpret_cast<const float4*>(&xt[(j0 + jj) * kLd + tm * 8]);
-      const float4 xb = *reinterpret_cast<const float4*>(&xt[(j0 + jj) * kLd + tm * 8 + 4]);
-      const float4 ba = *reinterpret_cast<const float4*>(&bt[jj * kLd + tn * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&bt[jj * kLd + 64 + tn * 4]);
-      const float d[8] = {xa.x - m, xa.y - m, xa.z - m, xa.w - m,
-                          xb.x - m, xb.y - m, xb.z - m, xb.w - m};
-      const float b[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+    const float* bs = stages + (p % kStages) * kStageFloats;
+    const float* ms = bs + kChunk * kBLd;
+    const float* xw = xs + (wm * kWarpRows + g) * xld + ip * kPanel + 2 * t;
+    const float* bw = bs + (wn * kWarpCols + g) * kBLd + 2 * t;
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
+    for (int kk = 0; kk < kPanel; kk += 8) {
+      // fragment input t is column 2t of the step and input t + 4 column
+      // 2t + 1; rows g and g + 8 of each m16 tile
+      uint32_t ah[kMT][4], al[kMT][4];
+      const float2 m = *reinterpret_cast<const float2*>(ms + kk + 2 * t);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(d[a], b[c], acc[a][c]);
+      for (int i = 0; i < kMT; ++i) {
+        const float2 x0 = *reinterpret_cast<const float2*>(xw + i * 16 * xld + kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(xw + (i * 16 + 8) * xld + kk);
+        split(x0.x - m.x, ah[i][0], al[i][0]);  // row g,     input t
+        split(x1.x - m.x, ah[i][1], al[i][1]);  // row g + 8, input t
+        split(x0.y - m.y, ah[i][2], al[i][2]);  // row g,     input t + 4
+        split(x1.y - m.y, ah[i][3], al[i][3]);  // row g + 8, input t + 4
       }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t bh[2], bl[2];
+        const float2 b = *reinterpret_cast<const float2*>(bw + j * 8 * kBLd + kk);
+        split(b.x, bh[0], bl[0]);
+        split(b.y, bh[1], bl[1]);
+        // the small passes first, then hi * hi; kMT independent tiles a pass
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma(acc[i][j], al[i], bh);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma(acc[i][j], ah[i], bl);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma(acc[i][j], ah[i], bh);
+      }
+      // queue the next panel once this step's products keep the tensor
+      // cores busy, not ahead of them
+      if (kk == 0) enqueue();
     }
 
-    if (last_of_chunk) {
-      // outputs past D have zero rows of B_k and add exactly 0
+    if (ip == n_panels - 1) {
+      // the chunk is done; outputs past D have zero rows of B_k and add 0
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) q[a] = fmaf(acc[a][c], acc[a][c], q[a]);
-      }
-    }
-    if (rem == per_cluster - 1) {
-      // sum the partial forms over the 16 lanes of the half-warp that share tm
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) q[a] += __shfl_xor_sync(0xffffffffu, q[a], off);
-      }
-      float quad = q[0];
-#pragma unroll
-      for (int a = 1; a < 8; ++a) quad = tn == a ? q[a] : quad;
-      int c = 0, kc = k;  // chain, and slot within it
-      if constexpr (kChains) {
-        c = k / K;
-        kc = k - c * K;
-      }
-      if (tn < 8 && my_row < N) {
-        const float lp = base[k] - 0.5f * quad +
-                         philox::gumbel(seed, static_cast<uint32_t>(my_row), static_cast<uint32_t>(kc),
-                                        static_cast<uint32_t>(c));
-        if (lp > best) {
-          best = lp;
-          arg = kc;
+        for (int j = 0; j < kNT; ++j) {
+          q[i][0] = fmaf(acc[i][j][0], acc[i][j][0], fmaf(acc[i][j][1], acc[i][j][1], q[i][0]));
+          q[i][1] = fmaf(acc[i][j][2], acc[i][j][2], fmaf(acc[i][j][3], acc[i][j][3], q[i][1]));
         }
-      }
-      if constexpr (kChains) {
-        if (kc == K - 1) {  // this chain's last slot: emit, then start the next chain
-          if (tn < 8 && my_row < N) z[static_cast<size_t>(c) * N + my_row] = arg;
-          best = -INFINITY;
-          arg = 0;
+    }
+    if (rem == per_slot - 1) {
+      // the slot is done: sum each row's form over its quad, then its warps
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          q[i][h] += __shfl_xor_sync(0xffffffffu, q[i][h], 1);
+          q[i][h] += __shfl_xor_sync(0xffffffffu, q[i][h], 2);
+          if (t == 0) qs[wn * kRows + wm * kWarpRows + i * 16 + h * 8 + g] = q[i][h];
+        }
+      __syncthreads();
+      if (tid < kRows) {
+        const float quad = (qs[tid] + qs[kRows + tid]) + (qs[2 * kRows + tid] + qs[3 * kRows + tid]);
+        int c = 0, kc = s;  // chain, and slot within it
+        if constexpr (kChains) {
+          c = s / K;
+          kc = s - c * K;
+        }
+        const int row = row0 + tid;
+        if (row < N) {
+          const float lp = base[s] - 0.5f * quad +
+                           philox::gumbel(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(kc),
+                                          static_cast<uint32_t>(c));
+          if (lp > best) {
+            best = lp;
+            arg = kc;
+          }
+        }
+        if constexpr (kChains) {
+          if (kc == K - 1) {  // this chain's last slot: emit, then start the next chain
+            if (row < N) z[static_cast<size_t>(c) * N + row] = arg;
+            best = -INFINITY;
+            arg = 0;
+          }
         }
       }
     }
   }
+  cp_async_wait<0>();
   if constexpr (!kChains) {
-    if (tn < 8 && my_row < N) z[my_row] = arg;
+    if (tid < kRows && row0 + tid < N) z[row0 + tid] = arg;
   }
 }
 
-size_t smem_bytes(int D) {
-  const size_t Dp = static_cast<size_t>(round_up(D, kPanel));
-  return sizeof(float) * (Dp * kLd + static_cast<size_t>(kPanel) * kLd + Dp);
+int optin_smem() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  return optin;
 }
+
+template <bool kChains, int kPanel, int kStages, int kWarpCols>
+int launch_tiling(const float* X, const float* mu, const float* binv, const float* base,
+                  const int* seed, int* z, int N, int D, int K, int C, void* stream) {
+  const auto kernel = gaussian_assign_kernel<kChains, kPanel, kStages, kWarpCols>;
+  const size_t bytes = Tiling<kPanel, kStages, kWarpCols>::smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec = D % 4 == 0 && (addr(X) | addr(mu) | addr(binv)) % 16 == 0;
+  const int blocks = (N + kRows - 1) / kRows;
+  kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(X, mu, binv, base, seed, z, N,
+                                                                         D, K, C, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two tilings: 64 x 64 warp tiles and 32-input panels where they fit
+// (D <= 256 on an H100), else 64 x 32 tiles and 16-input panels, which fit
+// every D up to the maximum.
+using Wide = Tiling<32, 2, 64>;
+using Narrow = Tiling<16, 2, 32>;
 
 template <bool kChains>
 int launch(const float* X, const float* mu, const float* binv, const float* base, const int* seed,
            int* z, int N, int D, int K, int C, void* stream) {
-  const size_t bytes = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(gaussian_assign_kernel<kChains>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (N + kTileN - 1) / kTileN;
-  gaussian_assign_kernel<kChains><<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      X, mu, binv, base, seed, z, N, D, K, C);
-  return static_cast<int>(cudaGetLastError());
+  if (Wide::smem_bytes(D) <= static_cast<size_t>(optin_smem()))
+    return launch_tiling<kChains, 32, 2, 64>(X, mu, binv, base, seed, z, N, D, K, C, stream);
+  return launch_tiling<kChains, 16, 2, 32>(X, mu, binv, base, seed, z, N, D, K, C, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest D whose working set fits a block's shared memory.
+// Largest D whose working set (row tile, two stages) fits a block's shared memory.
 int gaussian_assign_max_dim(void) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  const size_t optin = static_cast<size_t>(optin_smem());
   int d = 0;
-  while (smem_bytes(d + kPanel) <= static_cast<size_t>(optin)) d += kPanel;
+  while (Narrow::smem_bytes(d + 16) <= optin) d += 16;
   return d;
 }
 

@@ -33,10 +33,12 @@ class numpy_dataview:
 
     ``.columns`` is ``tuple[(values, mask), ...]`` with float32 0/1 masks
     (1 = observed): the `data` argument of every kernel. With `defn`, each
-    column is checked and cast by its model's runtime type first.
+    column is checked and cast by its model's runtime type first. The
+    columns go to the card unless `device` names another; without a card
+    the default raises.
     """
 
-    def __init__(self, arr, defn: Optional[MixtureDefinition] = None, device="cpu"):
+    def __init__(self, arr, defn: Optional[MixtureDefinition] = None, device="cuda"):
         if isinstance(arr, (list, tuple)):
             cols = [self._one_column(a) for a in arr]
         elif isinstance(arr, np.ndarray) and arr.dtype.names:

@@ -99,8 +99,10 @@ def _tuplify(v):
     return v
 
 
-def deserialize(blob: bytes, device="cpu"):
-    """bytes -> (state, extra), with every tensor and generator on `device`."""
+def deserialize(blob: bytes, device="cuda"):
+    """bytes -> (state, extra), with every tensor and generator on `device`:
+    the card unless the caller names another (without a card the default
+    raises)."""
     device = torch.device(device)
     with np.load(_io.BytesIO(blob)) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode())
@@ -119,6 +121,6 @@ def save(path: str, state: MixtureState, extra: Optional[Dict[str, Any]] = None)
         f.write(serialize(state, extra))
 
 
-def load(path: str, device="cpu"):
+def load(path: str, device="cuda"):
     with open(path, "rb") as f:
         return deserialize(f.read(), device)

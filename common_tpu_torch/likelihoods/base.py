@@ -102,8 +102,11 @@ class Likelihood:
         raise NotImplementedError
 
     def validate_hyper(self, hyper: Dict[str, Any], dtype=torch.float32,
-                       device=None) -> Dict[str, torch.Tensor]:
+                       device="cuda") -> Dict[str, torch.Tensor]:
         """Canonicalize a hyper dict to tensors on `device`; raise on missing keys.
+
+        Callers pass the data's or the state's device; the default is the
+        card, never the process default.
 
         Floating values are cast to `dtype`, so the hypers (and the stats
         built from them) follow the data's precision.

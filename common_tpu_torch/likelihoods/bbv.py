@@ -69,7 +69,7 @@ class BBV(base.Likelihood):
         # d is carried by the hyper arrays themselves
         return {"alpha": np.ones(1), "beta": np.ones(1)}
 
-    def validate_hyper(self, hyper, dtype=torch.float32, device=None):
+    def validate_hyper(self, hyper, dtype=torch.float32, device="cuda"):
         missing = {"alpha", "beta"} - set(hyper)
         if missing:
             raise ValueError(f"{self.name}: missing hyperparameters {sorted(missing)}")

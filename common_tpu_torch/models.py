@@ -38,8 +38,13 @@ class model_descriptor:
         return model_descriptor(self.likelihood, merged, self.rtype)
 
     def canonical_hyper(self, hyper: Dict[str, Any] | None = None,
-                        dtype=torch.float32, device=None):
-        """Merge user hyper over defaults; tensors of `dtype` on `device`."""
+                        dtype=torch.float32, device="cuda"):
+        """Merge user hyper over defaults; tensors of `dtype` on `device`.
+
+        `state.initialize` and `state.sample` pass the data's or the
+        generator's device; called alone, the card, never the process
+        default.
+        """
         merged = {**self.default_hyper, **(hyper or {})}
         return self.likelihood.validate_hyper(merged, dtype=dtype, device=device)
 

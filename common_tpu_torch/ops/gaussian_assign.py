@@ -11,11 +11,14 @@ argmax is taken within each chain, z [C, N]. Both are one CUDA kernel,
 instantiated with and without the chain axis. Like the Pallas kernels,
 the [N, K] score and noise tables never reach device memory: X is read
 once for all chains and z written once. The CUDA kernel
-(`csrc/gaussian_assign.cu`) is bound by N*K*D^2 fp32 multiply-adds on the
-CUDA cores (no TF32, no tensor cores), which it feeds from an 8 x 8
-register tile per thread; it streams each B_k through shared memory in
-panels, because one B_k at D = 256 (256 KB) does not fit a block's
-227 KB. Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
+(`csrc/gaussian_assign.cu`) runs the N*K*D^2 multiply-adds on the tensor
+cores as 3xTF32 split products (`csrc/tf32x3.cuh`: each operand split
+into a TF32 high part and the fp32 rest, three TF32 products summed in
+fp32), which keeps fp32 accuracy; no product is a single TF32 pass. It
+streams each B_k through shared memory in panels, because one B_k at
+D = 256 (256 KB) does not fit a block's 227 KB, and takes any D up to
+`gaussian_assign_max_dim` (384 on an H100); wider rows raise.
+Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
 counter (row, k, c), k the slot within chain c, so the draws do not depend
 on the tiling and chain 0 draws the single-chain stream. The seed is read
 from a device int32 tensor, so the host never waits for it. The Pallas

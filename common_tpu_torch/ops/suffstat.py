@@ -7,14 +7,19 @@
 That kernel runs one masked product per cluster, K times the needed
 multiply-adds. Here the rows are first ordered by cluster (a stable sort,
 plain tensor code around the kernel, as the JAX package left its one-hot
-to XLA), and the CUDA kernel (`csrc/suffstat.cu`) gives each block one
-(cluster, slice of that cluster's rows, output tile): N*D^2 multiply-adds
-instead of N*K*D^2. Each slice writes a partial sum, and the partials are
-added here in a fixed order, so a large cluster does not leave the other
-SMs idle, no atomics are needed and the result is deterministic. What
-bounds it on the card and how it deals with that is in the source.
+to XLA; `sort_by_cluster`), the sorted rows are cut into chunks of equal
+size, each within one cluster (`chunk_schedule`, on the device, so the
+host never waits), and the CUDA kernel (`csrc/suffstat.cu`) gives each
+block one (chunk, 64 x 64 output tile on or above the diagonal): N*D^2
+multiply-adds instead of N*K*D^2, with a 333k-row cluster spread over as
+many blocks as its rows need. Each chunk writes a partial sum and its
+mirror, and a second kernel adds each cluster's partials in chunk order,
+so no atomics are needed, the result is deterministic and exactly
+symmetric. What bounds it on the card and how it deals with that is in the
+source.
 
-Precision: fp32 FMA on the CUDA cores, no TF32 and no tensor cores.
+Precision: 3xTF32 split products on the tensor cores, fp32 accumulation
+(`csrc/tf32x3.cuh`); no single-pass TF32.
 
 Rows with z outside [0, K) (masked rows routed to K) add nothing.
 """
@@ -25,9 +30,9 @@ import torch
 
 from common_tpu_torch.ops import _build
 
-# Each cluster's rows are cut into this many slices, one partial sum each;
-# fewer where the [splits, K, D, D] partials would pass SCRATCH_FLOATS.
-MAX_SPLITS = 8
+# Rows of a chunk; more where the [U, D, D] chunk partials would pass
+# SCRATCH_FLOATS.
+ROWS_PER_CHUNK = 8192
 SCRATCH_FLOATS = 1 << 26
 
 
@@ -49,11 +54,82 @@ def _check(X: torch.Tensor, z: torch.Tensor, K: int) -> None:
         raise ValueError(f"X is on {X.device} but z is on {z.device}")
 
 
+def rows_per_chunk(n_rows: int, D: int, K: int) -> int:
+    """Rows of a chunk: ROWS_PER_CHUNK, or more where the partials of
+    n_rows // rows + K chunks would pass SCRATCH_FLOATS."""
+    room = SCRATCH_FLOATS // max(1, D * D) - K
+    if room < 1:
+        return max(1, n_rows)
+    return max(ROWS_PER_CHUNK, -(-n_rows // room))
+
+
+def chunk_schedule(offsets: torch.Tensor, n_rows: int, rows: int):
+    """Cut each cluster's sorted rows into chunks of `rows` (its last shorter).
+
+    offsets [K + 1]: cluster k owns sorted positions offsets[k] ..
+    offsets[k + 1] - 1. Returns int32 tensors on offsets' device: cstart
+    [K + 1] (cluster k owns chunks cstart[k] .. cstart[k + 1] - 1) and lo, hi
+    [U] (chunk u owns positions lo[u] .. hi[u] - 1; empty past the last
+    chunk), with U = n_rows // rows + K, which bounds the chunk count. All
+    fixed-size tensor ops: nothing waits for the device.
+    """
+    K = offsets.numel() - 1
+    off = offsets.to(torch.int64)
+    cstart = torch.zeros(K + 1, dtype=torch.int64, device=off.device)
+    cstart[1:] = torch.cumsum((off[1:] - off[:-1] + rows - 1) // rows, 0)
+    u = torch.arange(n_rows // rows + K, dtype=torch.int64, device=off.device)
+    k = torch.searchsorted(cstart[1:], u, right=True).clamp_(max=K - 1)
+    lo = off[k] + (u - cstart[k]) * rows
+    hi = torch.minimum(lo + rows, off[k + 1])
+    valid = u < cstart[K]
+    lo = torch.where(valid, lo, 0)
+    hi = torch.where(valid, hi, 0)
+    return cstart.to(torch.int32), lo.to(torch.int32), hi.to(torch.int32)
+
+
+def sort_by_cluster(z: torch.Tensor, K: int):
+    """(order, offsets): row indices grouped by cluster with a stable sort,
+    masked rows (z outside [0, K)) last; cluster k owns
+    order[offsets[k]:offsets[k + 1]]. Both int32, on z's device.
+
+    The offsets come from a search of the sorted ids, not torch.bincount,
+    whose CUDA version waits for the device to size its output.
+    """
+    zi = torch.where((z >= 0) & (z < K), z, K)
+    zs, order = torch.sort(zi, stable=True)
+    offsets = torch.searchsorted(zs, torch.arange(K + 1, device=z.device, dtype=zs.dtype))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def scatter_sorted(X: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """sum_xxT [K, D, D] from rows grouped by `sort_by_cluster`: the launch.
+
+    CUDA only: float32 X, int32 order and offsets, contiguous.
+    """
+    N, D = X.shape
+    K = offsets.numel() - 1
+    rows = rows_per_chunk(N, D, K)
+    cstart, lo, hi = chunk_schedule(offsets, N, rows)
+    partial = torch.empty((lo.numel(), D, D), device=X.device, dtype=torch.float32)
+    out = torch.empty((K, D, D), device=X.device, dtype=torch.float32)
+    lib = _build.library()
+    with torch.cuda.device(X.device):
+        err = lib.scatter_stats_launch(
+            X.data_ptr(), order.data_ptr(), lo.data_ptr(), hi.data_ptr(), cstart.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), D, K, lo.numel(),
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    _build.check(err, "scatter_stats_launch")
+    fused_scatter_stats.launches += 1
+    return out
+
+
 def fused_scatter_stats(X: torch.Tensor, z: torch.Tensor, K: int) -> torch.Tensor:
     """sum_xxT [K, D, D] from rows X [N, D] and assignments z [N].
 
-    CUDA: float32 X, int32 z, both contiguous; launches `csrc/suffstat.cu`.
-    CPU: `scatter_stats_plain`. Any other device raises.
+    CUDA: float32 X, int32 z, both contiguous; `sort_by_cluster`, then
+    `scatter_sorted` launches `csrc/suffstat.cu`. CPU:
+    `scatter_stats_plain`. Any other device raises.
     """
     _check(X, z, K)
     if X.device.type == "cpu":
@@ -64,27 +140,8 @@ def fused_scatter_stats(X: torch.Tensor, z: torch.Tensor, K: int) -> torch.Tenso
         raise ValueError(f"expected float32 X and int32 z, got {X.dtype} and {z.dtype}")
     if not (X.is_contiguous() and z.is_contiguous()):
         raise ValueError("fused_scatter_stats needs contiguous X and z")
-    N, D = X.shape
-    zi = torch.where((z >= 0) & (z < K), z, K)
-    # Stable order groups the rows by cluster, masked rows (K) last; the
-    # offsets come from a search of the sorted ids, not torch.bincount,
-    # whose CUDA version waits for the device to size its output.
-    zs, order = torch.sort(zi, stable=True)
-    offsets = torch.searchsorted(
-        zs, torch.arange(K + 1, device=X.device, dtype=torch.int32)
-    ).to(torch.int32)
-    order = order.to(torch.int32)
-    splits = max(1, min(MAX_SPLITS, SCRATCH_FLOATS // max(1, K * D * D)))
-    partial = torch.empty((splits, K, D, D), device=X.device, dtype=torch.float32)
-    lib = _build.library()
-    with torch.cuda.device(X.device):
-        err = lib.scatter_stats_launch(
-            X.data_ptr(), order.data_ptr(), offsets.data_ptr(), partial.data_ptr(),
-            D, K, splits, torch.cuda.current_stream(X.device).cuda_stream,
-        )
-    _build.check(err, "scatter_stats_launch")
-    fused_scatter_stats.launches += 1
-    return partial.sum(0)
+    order, offsets = sort_by_cluster(z, K)
+    return scatter_sorted(X, order, offsets)
 
 
 fused_scatter_stats.launches = 0

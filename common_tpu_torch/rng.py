@@ -18,13 +18,14 @@ from common_tpu_torch import validator
 class rng:
     """Seeded handle mirroring the reference's Python ``rng(seed)`` object.
 
-    Holds one `torch.Generator` on `device`; pass `.generator` to the
-    samplers.
+    Holds one `torch.Generator` on `device`, the card unless the caller
+    names another (`device="cpu"`); pass `.generator` to the samplers.
+    Without a card the default raises, as `torch.Generator("cuda")` does.
     """
 
     __slots__ = ("generator", "seed")
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cuda"):
         validator.validate_type(seed, int, "seed")
         self.seed = seed
         self.generator = torch.Generator(device=torch.device(device))

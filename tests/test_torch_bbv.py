@@ -88,12 +88,12 @@ def test_stats_tx_and_init_match_jax():
 
 
 def test_validate_and_default_hyper():
-    good = models.bbv(D).canonical_hyper()
+    good = models.bbv(D).canonical_hyper(device="cpu")
     assert good["alpha"].shape == (D,) and good["alpha"].dtype == torch.float32
     with pytest.raises(ValueError, match="matching"):
-        tbbv.validate_hyper({"alpha": np.ones(3), "beta": np.ones(4)})
+        tbbv.validate_hyper({"alpha": np.ones(3), "beta": np.ones(4)}, device="cpu")
     with pytest.raises(ValueError, match="missing"):
-        tbbv.validate_hyper({"alpha": np.ones(3)})
+        tbbv.validate_hyper({"alpha": np.ones(3)}, device="cpu")
     with pytest.raises(ValueError):
         models.bbv(0)
     assert set(tbbv.default_hyper()) == {"alpha", "beta"}
@@ -136,7 +136,7 @@ def test_betaln_matches_jax(scale):
 def test_sample_params_mean_matches_posterior():
     hyper, X, mask, gid = _problem(3)
     stats = _t(_jstats(hyper, X, mask, gid))
-    g = rng(0).generator
+    g = rng(0, "cpu").generator
     draws = torch.stack([tbbv.sample_params(g, _t(hyper), stats)["p"] for _ in range(4000)])
     post = tbbv.posterior_hyper(_t(hyper), stats)
     want = post["alpha"] / (post["alpha"] + post["beta"])
@@ -165,7 +165,7 @@ def test_scalar_functions_match_jax(name, args, x):
 # slice sampling
 # ---------------------------------------------------------------------------
 def _chain_slice(seed, x0, logf, n, **kw):
-    g = rng(seed).generator
+    g = rng(seed, "cpu").generator
     x, xs = torch.tensor(x0), []
     for _ in range(n):
         x = slice_.slice_sample(g, x, logf, **kw)
@@ -189,7 +189,7 @@ def test_slice_samples_beta_with_bounds():
 
 def test_slice_returns_x0_when_no_proposal_lands():
     """A target whose slice holds only x0 exhausts the shrink cap: a no-op."""
-    g = rng(2).generator
+    g = rng(2, "cpu").generator
     x = slice_.slice_sample(g, torch.tensor(0.25), lambda v: torch.where(v == 0.25, 0.0, -1e9), w=1.0)
     assert float(x) == 0.25
 
@@ -203,10 +203,10 @@ def test_slice_hp_moves_bbv_alpha_and_keeps_bounds():
     x = (r.random((n, d)) < 0.15).astype(np.float32)
     defn = st.model_definition(n, [models.bbv(d)], k_max=4)
     data = ((torch.from_numpy(x), torch.ones(n)),)
-    s = st.initialize(defn, data, rng(0).generator, assignment=np.zeros(n, np.int32),
+    s = st.initialize(defn, data, rng(0, "cpu").generator, assignment=np.zeros(n, np.int32),
                       feature_hps=[{"alpha": np.full(d, 5.0), "beta": np.ones(d)}])
     spec = {0: {"alpha": {"prior": sf.log_exponential(0.5), "w": 1.0, "bounds": (1e-4, 100.0)}}}
-    g = rng(3).generator
+    g = rng(3, "cpu").generator
     alphas = []
     for _ in range(600):
         s = slice_.hp(s, data, g, spec)
@@ -221,8 +221,8 @@ def test_slice_hp_moves_bbv_alpha_and_keeps_bounds():
 def test_slice_hp_cluster_alpha_stays_in_bounds():
     defn = st.model_definition(30, [models.bbv(2)], k_max=6)
     data = ((torch.zeros(30, 2), torch.ones(30)),)
-    s = st.initialize(defn, data, rng(0).generator, cluster_hp={"alpha": 1.0})
-    g = rng(1).generator
+    s = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 1.0})
+    g = rng(1, "cpu").generator
     vals = []
     for _ in range(100):
         s = slice_.hp(s, data, g, {}, cluster={"prior": sf.log_exponential(1.0), "w": 0.5,
@@ -309,8 +309,8 @@ def test_bbv_sweep_matches_enumeration(kernel):
     def sample_fn(nsweeps):
         if nsweeps not in cache:
             seed = len(cache)
-            s0 = st.initialize(defn, data, rng(seed + 100).generator, cluster_hp=chp)
-            _, trace = run_chain(s0, data, rng(seed).generator, nsweeps + 100, [kernel])
+            s0 = st.initialize(defn, data, rng(seed + 100, "cpu").generator, cluster_hp=chp)
+            _, trace = run_chain(s0, data, rng(seed, "cpu").generator, nsweeps + 100, [kernel])
             cache[nsweeps] = [testutil.permutation_canonical(a)
                               for a in trace["assignments"][100:].numpy()]
         return cache[nsweeps]
@@ -332,8 +332,8 @@ def test_fused_bbv_stats_equal_the_plain_restat_of_its_draw():
     mask[::7] = 0.0
     defn = st.model_definition(len(X), [models.bbv(X.shape[1])], k_max=8)
     data = ((torch.from_numpy(X), torch.from_numpy(mask)),)
-    s = st.initialize(defn, data, rng(3).generator)
-    out = blocked.sweep_fused(s, data, rng(4).generator)
+    s = st.initialize(defn, data, rng(3, "cpu").generator)
+    out = blocked.sweep_fused(s, data, rng(4, "cpu").generator)
     plain = blocked.restat(s, data, out.assignments)
     assert torch.equal(out.counts, plain.counts) and int(out.counts.sum()) == len(X)
     for leaf in ("n", "heads"):
@@ -355,7 +355,7 @@ def test_heldout_logp_of_a_converted_bbv_state_matches_jax(monkeypatch):
         "hypers": tuple({k: np.asarray(v) for k, v in h.items()} for h in js.hypers),
         "lik_names": tuple(js.lik_names), "fixed": bool(js.fixed),
     }
-    s = convert.state_from_numpy(leaves)
+    s = convert.state_from_numpy(leaves, device="cpu")
     r = np.random.default_rng(5)
     Xh = (r.random((37, D)) < 0.4).astype(np.float32)
     mh = np.ones(37, np.float32)
@@ -371,14 +371,14 @@ def test_runner_fused_bbv_with_slice_hp_recovers_clusters():
     n, d = X.shape
     defn = st.model_definition(n, [models.bbv(d)], k_max=16)
     data = ((torch.from_numpy(X), torch.ones(n)),)
-    s = st.initialize(defn, data, rng(0).generator, cluster_hp={"alpha": 1.0})
+    s = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 1.0})
     bounds = {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (0.5, 50.0)}
     config = [("assign_blocked_fused", {}),
               ("slice_hp", {"specs": {0: {"alpha": bounds, "beta": bounds}},
                             "cluster": {"prior": sf.log_exponential(1.0), "w": 0.5,
                                         "bounds": (1e-4, 1e4)}})]
     run = runner(defn, data, s, config)
-    run.run(rng(1).generator, 30)
+    run.run(rng(1, "cpu").generator, 30)
     zs = run.assignment_trace
     co = np.mean([a[:, None] == a[None, :] for a in zs[-10:]], axis=0) > 0.5
     assert (co == (zt[:, None] == zt[None, :])).mean() > 0.95

@@ -44,8 +44,8 @@ def test_sweep_matches_enumeration(kernel):
     def sample_fn(nsweeps):
         if nsweeps not in cache:
             seed = len(cache)
-            s0 = st.initialize(defn, data, rng(seed + 100).generator, cluster_hp=chp)
-            _, trace = run_chain(s0, data, rng(seed).generator, nsweeps + 300, [kernel])
+            s0 = st.initialize(defn, data, rng(seed + 100, "cpu").generator, cluster_hp=chp)
+            _, trace = run_chain(s0, data, rng(seed, "cpu").generator, nsweeps + 300, [kernel])
             zs = trace["assignments"][300:].numpy()
             cache[nsweeps] = [testutil.permutation_canonical(a) for a in zs]
         return cache[nsweeps]
@@ -67,10 +67,10 @@ def _recovery_problem():
 
 def test_runner_fused_recovers_clusters():
     defn, data, zt = _recovery_problem()
-    s = st.initialize(defn, data, rng(42).generator, cluster_hp={"alpha": 1.0})
+    s = st.initialize(defn, data, rng(42, "cpu").generator, cluster_hp={"alpha": 1.0})
     run = runner(defn, data, s, [("assign_blocked_fused", {})])
-    run.run(rng(1).generator, 40)
-    run.run(rng(2).generator, 20)
+    run.run(rng(1, "cpu").generator, 40)
+    run.run(rng(2, "cpu").generator, 20)
     zs = run.assignment_trace
     assert zs.shape == (60, 600) and run.score_trace.shape == (60,)
     assert run.k_active_trace.shape == (60,)
@@ -92,7 +92,7 @@ def test_sweeps_stay_finite(case, sweep):
         mask.zero_()
     defn = st.model_definition(600, [models.niw(2)], k_max=k_max)
     data = ((x, mask),)
-    g = rng(7).generator
+    g = rng(7, "cpu").generator
     s = st.initialize(defn, data, g, fixed=fixed)
     for _ in range(3):
         s = sweep(s, data, g)
@@ -109,8 +109,8 @@ def test_fused_stats_equal_the_plain_restat_of_its_draw():
     mask = mask.clone()
     mask[::7] = 0.0
     data = ((x, mask),)
-    s = st.initialize(defn, data, rng(3).generator)
-    out = blocked.sweep_fused(s, data, rng(4).generator)
+    s = st.initialize(defn, data, rng(3, "cpu").generator)
+    out = blocked.sweep_fused(s, data, rng(4, "cpu").generator)
     plain = blocked.restat(s, data, out.assignments)
     assert torch.equal(out.counts, plain.counts)
     for leaf in ("n", "sum_x", "sum_xxT"):
@@ -119,7 +119,7 @@ def test_fused_stats_equal_the_plain_restat_of_its_draw():
 
 def test_stick_break_weights_normalize_and_order():
     counts = torch.tensor([5, 3, 0, 2, 0, 0, 0, 0], dtype=torch.int32)
-    g = rng(0).generator
+    g = rng(0, "cpu").generator
     alpha = torch.tensor(1.0)
     logw = blocked.stick_break_log_weights(g, counts, alpha)
     torch.testing.assert_close(torch.logsumexp(logw, 0), torch.tensor(0.0), atol=1e-5, rtol=0)
@@ -133,7 +133,7 @@ def test_stick_break_weights_normalize_and_order():
 def test_dirichlet_weights_mean():
     counts = torch.tensor([6, 0, 2], dtype=torch.int32)
     alphas = torch.tensor([1.0, 1.0, 2.0])
-    g = rng(1).generator
+    g = rng(1, "cpu").generator
     w = torch.stack([blocked.dirichlet_log_weights(g, counts, alphas) for _ in range(4000)]).exp()
     want = (alphas + counts) / (alphas + counts).sum()
     torch.testing.assert_close(w.mean(0), want, atol=0.01, rtol=0)
@@ -143,8 +143,8 @@ def test_sweep_fused_rejects_other_models():
     """bbv now runs through sweep_fused (the linear assignment kernel's plain
     version on the CPU); any model other than a single niw or bbv raises."""
     defn, data, _ = _recovery_problem()
-    s = st.initialize(defn, data, rng(0).generator)
-    g = rng(1).generator
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
+    g = rng(1, "cpu").generator
     B = (data[0][0] > 0).to(torch.float32)
     bdata = ((B, torch.ones(600)),)
     sb = st.initialize(st.model_definition(600, [models.bbv(2)], k_max=32), bdata, g)
@@ -156,7 +156,7 @@ def test_sweep_fused_rejects_other_models():
 
 def test_runner_rejects_unknown_kernels():
     defn, data, _ = _recovery_problem()
-    s = st.initialize(defn, data, rng(0).generator)
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
     with pytest.raises(ValueError, match="kernel name"):
         runner(defn, data, s, [("split_merge", {})])  # a JAX kernel not ported yet
     with pytest.raises(ValueError, match="kernel name"):

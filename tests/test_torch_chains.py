@@ -149,7 +149,7 @@ def test_philox_gumbel_chain_word():
 # sample_params_prec
 # ---------------------------------------------------------------------------
 def _stacked(defn, data, C, seed, alpha=1.0):
-    g = rng(seed).generator
+    g = rng(seed, "cpu").generator
     return stack_states([st.initialize(defn, data, g, cluster_hp={"alpha": alpha})
                          for _ in range(C)])
 
@@ -163,7 +163,7 @@ def test_sample_params_prec_is_the_sample_params_draw():
     defn = st.model_definition(n, [models.niw(d)], k_max=K)
     states = _stacked(defn, ((X, torch.ones(n)),), C, 0)
     hyper = {k: v.unsqueeze(1) for k, v in states.hypers[0].items()}
-    g = rng(7).generator
+    g = rng(7, "cpu").generator
     state0 = g.get_state()
     th = tniw.sample_params(g, hyper, states.stats[0])
     g.set_state(state0)
@@ -236,7 +236,7 @@ def test_sweep_chains_matches_enumeration(route):
         if nsamples not in cache:
             burnin = 100
             states = _stacked(defn, data, C, 40 + len(cache), alpha=1.5)
-            g = rng(len(cache)).generator
+            g = rng(len(cache), "cpu").generator
             zs = []
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
@@ -272,7 +272,7 @@ def test_sweep_chains_restat_and_masking(route, budget):
     states = _stacked(defn, data, C, 1)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        out = blocked.sweep_chains(states, data, rng(3).generator, xx_budget_bytes=budget,
+        out = blocked.sweep_chains(states, data, rng(3, "cpu").generator, xx_budget_bytes=budget,
                                    **ROUTES[route])
     z = out.assignments.numpy()
     assert z.shape == (C, n) and out.counts.shape == (C, K)
@@ -286,7 +286,7 @@ def test_sweep_chains_restat_and_masking(route, budget):
     data0 = ((torch.from_numpy(X), torch.zeros(n)),)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        out0 = blocked.sweep_chains(states, data0, rng(3).generator, xx_budget_bytes=budget,
+        out0 = blocked.sweep_chains(states, data0, rng(3, "cpu").generator, xx_budget_bytes=budget,
                                     **ROUTES[route])
     assert float(out0.stats[0]["sum_x"].abs().sum()) == 0.0
     assert float(out0.stats[0]["sum_xxT"].abs().sum()) == 0.0
@@ -300,7 +300,7 @@ def test_sweep_chains_fallback_warns_once_and_serves_bbv(monkeypatch):
     X = torch.tensor(r.normal(size=(n, d)), dtype=torch.float32)
     data = ((X, torch.ones(n)),)
     states = _stacked(st.model_definition(n, [models.niw(d)], k_max=K), data, C, 0)
-    g = rng(0).generator
+    g = rng(0, "cpu").generator
     with pytest.warns(UserWarning, match="falling back") as caught:
         blocked.sweep_chains(states, data, g, d_max_xx=0)
     with warnings.catch_warnings():
@@ -324,7 +324,7 @@ def test_stack_unstack_round_trip_and_vmap_sweep():
     X = torch.tensor(r.normal(size=(n, d)), dtype=torch.float32)
     data = ((X, torch.ones(n)),)
     defn = st.model_definition(n, [models.niw(d)], k_max=K)
-    g = rng(0).generator
+    g = rng(0, "cpu").generator
     singles = [st.initialize(defn, data, g, cluster_hp={"alpha": a}) for a in (0.5, 1.0, 2.0)]
     stacked = stack_states(singles)
     assert stacked.assignments.shape == (3, n) and stacked.stats[0]["sum_xxT"].shape == (3, K, d, d)
@@ -338,7 +338,7 @@ def test_stack_unstack_round_trip_and_vmap_sweep():
         for leaf in s.hypers[0]:
             assert torch.equal(back.hypers[0][leaf], s.hypers[0][leaf])
     # vmap_sweep: chain c of the result is sweep(chain c) with the generator in turn
-    g1, g2 = rng(9).generator, rng(9).generator
+    g1, g2 = rng(9, "cpu").generator, rng(9, "cpu").generator
     out = vmap_sweep(blocked.sweep)(stacked, data, g1)
     for i, s in enumerate(singles):
         assert torch.equal(unstack_state(out, i).assignments, blocked.sweep(s, data, g2).assignments)
@@ -368,7 +368,7 @@ def test_stacked_jax_state_converts_and_scores_per_chain():
     jdata = ((jnp.asarray(X), jnp.ones(n)),)
     js = jax.vmap(lambda k: jst.initialize(jdefn, jdata, k, cluster_hp={"alpha": 1.0}))(
         jax.random.split(jax.random.key(0), C))
-    stacked = convert.state_from_numpy(_leaves(js))
+    stacked = convert.state_from_numpy(_leaves(js), device="cpu")
     assert stacked.assignments.shape == (C, n) and stacked.counts.shape == (C, K)
     assert all(v.shape[0] == C for v in stacked.hypers[0].values())
     Xh = r.normal(scale=3.0, size=(20, d)).astype(np.float32)

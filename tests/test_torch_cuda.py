@@ -104,6 +104,64 @@ def test_cuda_linear_kernel_matches_plain(cuda_device, n, d, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 203, 256, 384])
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_cuda_assign_kernel_at_every_tiling(cuda_device, d, k):
+    """Draw for draw at a ragged N over the widths of the kernel's two
+    tilings (64 x 64 warp tiles and 32-input panels up to D = 256, 64 x 32
+    tiles and 16-input panels to D = 384), D = 203 filling no panel or
+    16-byte row; for one slot, a few and the main path's 64."""
+    t = _assign_problem(1000 + 37, d, k, 0.3, 100 * d + k, cuda_device)
+    seed = torch.tensor([d + k], dtype=torch.int32, device=cuda_device)
+    z = ga.fused_gaussian_assign(*t, seed)
+    if k == 1:
+        assert torch.equal(z, torch.zeros_like(z))
+    else:
+        _assert_exact(z, ga.philox_scores(*t, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4])
+def test_cuda_chains_kernel_at_the_main_path_width(cuda_device, c):
+    """The chain form at D = 256, K = 64 on dense B_k: each chain draw for
+    draw, and chain 0 equal to the single-chain kernel bit for bit."""
+    n, d, k = 2048 + 5, 256, 64
+    r = np.random.default_rng(c)
+    X, _, _, _ = _assign_problem(n, d, 1, 0.3, c, cuda_device)
+    mu = torch.tensor(r.normal(scale=0.3, size=(c * k, d)), dtype=torch.float32, device=cuda_device)
+    binv = torch.tensor(r.normal(scale=d ** -0.5, size=(c * k, d, d)) + np.eye(d),
+                        dtype=torch.float32, device=cuda_device)
+    base = torch.tensor(r.normal(size=c * k), dtype=torch.float32, device=cuda_device)
+    seed = torch.tensor([17], dtype=torch.int32, device=cuda_device)
+    z = ga.fused_gaussian_assign_chains(X, mu, binv, base, seed, c)
+    for ch in range(c):
+        sl = slice(ch * k, (ch + 1) * k)
+        _assert_exact(z[ch], ga.philox_scores(X, mu[sl], binv[sl], base[sl], seed, chain=ch))
+    assert torch.equal(z[0], ga.fused_gaussian_assign(X, mu[:k], binv[:k], base[:k], seed))
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_kernel_on_a_large_cluster_against_float64(cuda_device):
+    """One cluster of 332k rows at D = 256 (the main path's largest holds
+    about a third of 1M rows) within 1e-5 of float64, a small one too, an
+    empty one exactly 0, and every sum_xxT equal to its transpose."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    n, d = 333_333, 256
+    centers = 4.0 * torch.randn(8, d, generator=g, device=cuda_device)
+    X = centers[torch.randint(0, 8, (n,), generator=g, device=cuda_device)]
+    X += torch.randn(n, d, generator=g, device=cuda_device)
+    z = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    z[:1000] = 2
+    got = ss.fused_scatter_stats(X, z, 3)
+    for c in (0, 2):
+        rows = X[z == c].double()
+        want = rows.T @ rows
+        assert ((got[c].double() - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.cuda
 def test_cuda_scatter_kernel_matches_plain(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     X = torch.randn(20011, 72, generator=g, device=cuda_device)

@@ -84,8 +84,8 @@ def _jax_data(cols):
 
 
 def _port_samples(defn, data, chp, config, nsweeps, seed, fixed=False, burnin=100):
-    s = st.initialize(defn, data, rng(seed + 100).generator, cluster_hp=chp, fixed=fixed)
-    _, trace = run_chain(s, data, rng(seed).generator, nsweeps + burnin, config)
+    s = st.initialize(defn, data, rng(seed + 100, "cpu").generator, cluster_hp=chp, fixed=fixed)
+    _, trace = run_chain(s, data, rng(seed, "cpu").generator, nsweeps + burnin, config)
     return trace["assignments"][burnin:].numpy()
 
 
@@ -192,7 +192,7 @@ def _f64_problem(seed=0):
         leaves = _leaves(js)
     data = ((torch.from_numpy(X), torch.ones(N, dtype=torch.float64)),
             (torch.from_numpy(y), torch.from_numpy(mask)))
-    return js, jdata, convert.state_from_numpy(leaves), data
+    return js, jdata, convert.state_from_numpy(leaves, device="cpu"), data
 
 
 def _assert_state_equal(got, want_js, tol=F64):
@@ -235,7 +235,7 @@ def test_zero_clear_kills_float_drift():
     X = r.normal(scale=3.0, size=(6, 2)).astype(np.float32)
     defn = st.model_definition(6, [models.niw(2)], k_max=4)
     data = ((torch.from_numpy(X), torch.ones(6)),)
-    s = st.initialize(defn, data, rng(0).generator, assignment=np.array([0, 0, 0, 1, 1, 2], np.int32))
+    s = st.initialize(defn, data, rng(0, "cpu").generator, assignment=np.array([0, 0, 0, 1, 1, 2], np.int32))
     for _ in range(50):
         for eid in (0, 1, 2):
             s = st.add_value(st.remove_value(s, data, eid), data, eid, 3)
@@ -292,7 +292,7 @@ def test_hp_grid_scores_match_jax():
         for k in grid[0]:
             np.testing.assert_array_equal(stacked[k].numpy(), np.stack([np.asarray(h[k]) for h in grid]))
     # the draw is one of the grid points, for every feature in the spec
-    out = gibbs.hp(s, {0: {"prior": cases[0][2], "grid": niw_grid}}, rng(0).generator)
+    out = gibbs.hp(s, {0: {"prior": cases[0][2], "grid": niw_grid}}, rng(0, "cpu").generator)
     assert any(float(out.hypers[0]["kappa"]) == h["kappa"] for h in niw_grid)
     assert out.hypers[1] is s.hypers[1]
 
@@ -307,7 +307,7 @@ def test_cluster_hp_grid_scores_match_jax():
             dataclasses.replace(js, cluster_hp={"alpha": jnp.asarray(a)}))) for a in grid])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     np.testing.assert_array_equal(g.numpy(), grid)
-    out = gibbs.cluster_hp(s, sf.log_exponential(1.0), grid, rng(1).generator)
+    out = gibbs.cluster_hp(s, sf.log_exponential(1.0), grid, rng(1, "cpu").generator)
     assert float(out.cluster_hp["alpha"]) in grid.tolist()
 
 
@@ -322,8 +322,8 @@ def test_escobar_west_odds_match_jax_and_the_chain_targets_the_posterior():
     # stationary law: p(alpha | K+, n) prop. to Gamma(alpha; 1, 1) alpha^K+ Gamma(alpha) / Gamma(alpha + n)
     z = np.array([0] * 20 + [1] * 12 + [2] * 8, np.int32)
     defn = st.model_definition(40, [models.bb], k_max=6)
-    s = st.initialize(defn, ((torch.zeros(40), torch.ones(40)),), rng(0).generator, assignment=z)
-    g = rng(5).generator
+    s = st.initialize(defn, ((torch.zeros(40), torch.ones(40)),), rng(0, "cpu").generator, assignment=z)
+    g = rng(5, "cpu").generator
     draws = []
     for _ in range(3000):
         s = gibbs.cluster_hp_escobar_west(s, g)
@@ -342,7 +342,7 @@ def test_escobar_west_odds_match_jax_and_the_chain_targets_the_posterior():
 def _bbnc_state():
     defn = st.model_definition(6, [models.bbnc], k_max=4)
     data = ((torch.tensor([1, 1, 1, 0, 1, 0]), torch.ones(6)),)
-    return st.initialize(defn, data, rng(0).generator, assignment=np.array([0, 0, 0, 1, 1, 1], np.int32)), data
+    return st.initialize(defn, data, rng(0, "cpu").generator, assignment=np.array([0, 0, 0, 1, 1, 1], np.int32)), data
 
 
 def test_theta_on_bbnc_matches_sample_params_moments():
@@ -350,7 +350,7 @@ def test_theta_on_bbnc_matches_sample_params_moments():
     the empty slots the prior Beta(1, 1); 4000 draws, means within 0.015 and
     standard deviations within 0.015 (about 5 standard errors)."""
     s, _ = _bbnc_state()
-    g = rng(1).generator
+    g = rng(1, "cpu").generator
     ps = torch.stack([gibbs.theta(s, g).stats[0]["p"] for _ in range(4000)]).numpy()
     for slot, (a, b) in enumerate(((4, 1), (2, 3), (1, 1), (1, 1))):
         assert abs(ps[:, slot].mean() - sps.beta(a, b).mean()) < 0.015, slot
@@ -362,7 +362,7 @@ def test_theta_on_bbnc_matches_sample_params_moments():
 def test_slice_theta_on_bbnc_matches_the_exact_conditional():
     """tests/test_slice.py:47 for the port: KS against Beta(4, 1) and Beta(2, 3)."""
     s, _ = _bbnc_state()
-    g = rng(2).generator
+    g = rng(2, "cpu").generator
     ps = []
     for _ in range(3000):
         s = slice_.theta(s, g, w=0.3)
@@ -404,11 +404,11 @@ def test_sweep_reads_nothing_back_and_leaves_its_input_unchanged(model, m):
                       (r.poisson(2.0, n), models.gp)]}[model]
     defn = st.model_definition(n, [d for _, d in cols], k_max=8)
     data = tuple((torch.from_numpy(x), torch.ones(n)) for x, _ in cols)
-    s = st.initialize(defn, data, rng(0).generator)
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
     before = convert.state_to_numpy(s)
     mode = _HostReads()
     with mode:
-        out = gibbs.assign_resample(s, data, rng(1).generator, m=m)
+        out = gibbs.assign_resample(s, data, rng(1, "cpu").generator, m=m)
     assert mode.seen == []
     after = convert.state_to_numpy(s)
     np.testing.assert_array_equal(after["assignments"], before["assignments"])
@@ -427,9 +427,9 @@ def test_sweep_reads_nothing_back_and_leaves_its_input_unchanged(model, m):
 def test_assign_fixed_refuses_a_crp_state_and_the_registry_is_complete():
     defn = st.model_definition(5, [models.bb], k_max=3)
     data = ((torch.tensor([0, 1, 1, 0, 1]), torch.ones(5)),)
-    s = st.initialize(defn, data, rng(0).generator)
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
     with pytest.raises(ValueError, match="fixed-K"):
-        gibbs.assign_fixed(s, data, rng(1).generator)
+        gibbs.assign_fixed(s, data, rng(1, "cpu").generator)
     from common_tpu.runner import KERNELS as JKERNELS
 
     missing = set(JKERNELS) - set(KERNELS)

@@ -68,18 +68,18 @@ def _problem(n=12, seed=0):
 # ---------------------------------------------------------------------------
 def test_checkpoint_roundtrip_with_generator(tmp_path):
     defn, data, _ = _problem()
-    s = st.initialize(defn, data, rng(0).generator, cluster_hp={"alpha": 1.3})
-    g = rng(7).generator
+    s = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 1.3})
+    g = rng(7, "cpu").generator
     torch.rand(5, generator=g)  # a generator part way along its stream
     path = str(tmp_path / "ckpt.npz")
     io.save(path, s, extra={"gen": g, "iter": 42})
-    s2, extra = io.load(path)
+    s2, extra = io.load(path, device="cpu")
     _assert_leaves_equal(convert.state_to_numpy(s2), convert.state_to_numpy(s))
     assert int(extra["iter"]) == 42
     assert isinstance(extra["gen"], torch.Generator)
     assert torch.equal(torch.rand(9, generator=extra["gen"]), torch.rand(9, generator=g))
-    stacked = stack_states([s, st.initialize(defn, data, rng(1).generator)])
-    back, _ = io.deserialize(io.serialize(stacked))
+    stacked = stack_states([s, st.initialize(defn, data, rng(1, "cpu").generator)])
+    back, _ = io.deserialize(io.serialize(stacked), device="cpu")
     _assert_leaves_equal(convert.state_to_numpy(back), convert.state_to_numpy(stacked))
     with pytest.raises(TypeError, match="MixtureState"):
         io.serialize({"not": "a state"})
@@ -90,15 +90,15 @@ def test_resume_is_bit_exact():
     (tests/test_io_diagnostics.py:44 for the port): the assignments, the
     stats and the score trace are equal, bit for bit."""
     defn, data, _ = _problem(seed=1)
-    s0 = st.initialize(defn, data, rng(0).generator, cluster_hp={"alpha": 1.0})
+    s0 = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 1.0})
     config = [("assign", {}), ("grid_cluster_hp", {"prior": sf.log_exponential(1.0),
                                                    "grid": np.geomspace(0.1, 10, 9)})]
-    g = rng(9).generator
+    g = rng(9, "cpu").generator
     straight, trace = run_chain(s0, data, g, 6, config)
 
-    g = rng(9).generator
+    g = rng(9, "cpu").generator
     half, t1 = run_chain(s0, data, g, 3, config)
-    restored, extra = io.deserialize(io.serialize(half, extra={"gen": g, "iter": 3}))
+    restored, extra = io.deserialize(io.serialize(half, extra={"gen": g, "iter": 3}), device="cpu")
     resumed, t2 = run_chain(restored, data, extra["gen"], 6 - int(extra["iter"]), config)
 
     assert torch.equal(straight.assignments, resumed.assignments)
@@ -129,7 +129,7 @@ def test_a_jax_blob_loads_and_scores_the_same_in_float64():
         blob = jio.serialize(js, extra={"iter": jnp.asarray(11)})
         want_lik = float(jst.score_likelihood(js))
         want_joint = float(jst.score_joint(js))
-    s, extra = io.deserialize(blob)
+    s, extra = io.deserialize(blob, device="cpu")
     _assert_leaves_equal(convert.state_to_numpy(s), _jleaves(js))
     assert s.stats[0]["sum_xxT"].dtype == torch.float64 and int(extra["iter"]) == 11
     np.testing.assert_allclose(float(st.score_likelihood(s)), want_lik, rtol=1e-9)
@@ -145,8 +145,8 @@ def test_a_prng_key_leaf_is_refused():
     js = jst.initialize(jdefn, ((jnp.asarray([0, 1, 1, 0, 1, 1]), jnp.ones(6)),), jax.random.key(0))
     blob = jio.serialize(js, extra={"key": jax.random.key(3)})
     with pytest.raises(ValueError, match="PRNG key"):
-        io.deserialize(blob)
-    s, extra = io.deserialize(jio.serialize(js))  # without the key it loads
+        io.deserialize(blob, device="cpu")
+    s, extra = io.deserialize(jio.serialize(js), device="cpu")  # without the key it loads
     assert extra == {} and s.lik_names == ("bb",)
 
 
@@ -156,11 +156,11 @@ def test_a_prng_key_leaf_is_refused():
 def test_jsonl_lines_match_the_jax_runner(tmp_path):
     defn, data, (X, b) = _problem(seed=3)
     config = [("assign", {}), ("ew_cluster_hp", {})]
-    s = st.initialize(defn, data, rng(0).generator)
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
     path = tmp_path / "port.jsonl"
     run = runner(defn, data, s, config, jsonl_path=str(path))
-    run.run(rng(1).generator, 3)
-    run.run(rng(2).generator, 2)
+    run.run(rng(1, "cpu").generator, 3)
+    run.run(rng(2, "cpu").generator, 2)
     jpath = tmp_path / "jax.jsonl"
     jdefn = jst.model_definition(12, [jmodels.niw(2), jmodels.bb], k_max=6)
     jdata = ((jnp.asarray(X), jnp.ones(12)), (jnp.asarray(b), jnp.ones(12)))
@@ -224,7 +224,7 @@ def test_numpy_dataview_matches_jax_columns():
     defn = st.model_definition(n, [models.bb, models.nich, models.niw(2)], k_max=4)
     for arr, dj, dt in ((rec, None, None), (masked, jdefn, defn), ([rec["x"], rec["v"]], None, None),
                         (rec["v"], None, None)):
-        view, jview = numpy_dataview(arr, dt), j_dataview(arr, dj)
+        view, jview = numpy_dataview(arr, dt, device="cpu"), j_dataview(arr, dj)
         assert len(view) == len(jview) == view.size() == n
         assert len(view.columns) == len(jview.columns)
         for (v, m), (jv, jm) in zip(view.view(), jview.columns):
@@ -234,11 +234,11 @@ def test_numpy_dataview_matches_jax_columns():
         for a, b in zip(view.toarray(), jview.toarray()):
             np.testing.assert_array_equal(np.ma.getmaskarray(a), np.ma.getmaskarray(b))
     with pytest.raises(ValueError, match="row count"):
-        numpy_dataview([np.zeros(3), np.zeros(4)])
+        numpy_dataview([np.zeros(3), np.zeros(4)], device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
-        numpy_dataview(3.0)
+        numpy_dataview(3.0, device="cpu")
     with pytest.raises(ValueError, match="data columns"):
-        numpy_dataview([rec["x"]], defn)
+        numpy_dataview([rec["x"]], defn, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -273,12 +273,12 @@ def test_convert_carries_every_likelihood_both_ways():
     p[:4] = [0.2, 0.7, 0.4, 0.9]
     js = dataclasses.replace(js, stats=(js.stats[0], {**js.stats[1], "p": jnp.asarray(p)}, *js.stats[2:]))
     leaves = _jleaves(js)
-    s = convert.state_from_numpy(leaves)
+    s = convert.state_from_numpy(leaves, device="cpu")
     _assert_leaves_equal(convert.state_to_numpy(s), leaves)
     np.testing.assert_allclose(float(st.score_joint(s)), float(jst.score_joint(js)), rtol=1e-5)
     defn = st.model_definition(n, [t for t, _, _ in cols], k_max=6)
     data = tuple((torch.from_numpy(x), torch.ones(n)) for _, _, x in cols)
-    own = st.initialize(defn, data, rng(0).generator, assignment=z)
+    own = st.initialize(defn, data, rng(0, "cpu").generator, assignment=z)
     for f, (a, b) in enumerate(zip(own.stats, s.stats)):
         for k in b:
             if k != "p":
@@ -289,14 +289,14 @@ def test_sample_and_sample_post_pred_cover_the_zoo():
     r = np.random.default_rng(7)
     cols = _zoo_columns(10, r)
     defn = st.model_definition(40, [t for t, _, _ in cols], k_max=8)
-    data, z = st.sample(defn, rng(0).generator, cluster_hp={"alpha": 2.0})
+    data, z = st.sample(defn, rng(0, "cpu").generator, cluster_hp={"alpha": 2.0})
     assert z.shape == (40,) and int(z.max()) < 8
     for (v, m), (_, _, x) in zip(data, cols):
         assert v.shape == (40, *x.shape[1:]) and m.shape == (40,)
         assert bool(torch.isfinite(v.to(torch.float64)).all())
-    s = st.initialize(defn, data, rng(1).generator, assignment=z)
+    s = st.initialize(defn, data, rng(1, "cpu").generator, assignment=z)
     assert np.isfinite(float(st.score_joint(s)))
-    pp, zp = st.sample_post_pred(s, rng(2).generator, size=6)
+    pp, zp = st.sample_post_pred(s, rng(2, "cpu").generator, size=6)
     assert zp.shape == (6,)
     for (v, _), (vd, _) in zip(pp, data):
         assert v.shape == (6, *vd.shape[1:]) and v.dtype == vd.dtype
@@ -309,7 +309,7 @@ def test_repad_matches_jax():
     z = r.integers(0, 3, n).astype(np.int32)
     jdefn = jst.model_definition(n, [jmodels.niw(2)], k_max=4)
     js = jst.initialize(jdefn, ((jnp.asarray(x), jnp.ones(n)),), jax.random.key(0), assignment=jnp.asarray(z))
-    s = convert.state_from_numpy(_jleaves(js))
+    s = convert.state_from_numpy(_jleaves(js), device="cpu")
     _assert_leaves_equal(convert.state_to_numpy(st.repad(s, 9)), _jleaves(jst.repad(js, 9)))
     assert st.repad(s, 4) is s
     with pytest.raises(ValueError, match="new_k_max"):

@@ -198,7 +198,7 @@ def test_logpdf_and_prior_logpdf_match_jax(name):
 @pytest.mark.parametrize("name", CONJUGATE)
 def test_empty_marginal_is_exactly_zero(name):
     desc = CASES[name][0]
-    hyper = desc.canonical_hyper(dtype=torch.float64)
+    hyper = desc.canonical_hyper(dtype=torch.float64, device="cpu")
     ml = desc.likelihood.marginal_loglik(hyper, desc.likelihood.init_stats(hyper, (K,)))
     assert ml.shape == (K,) and torch.equal(ml, torch.zeros(K, dtype=torch.float64))
 
@@ -287,7 +287,7 @@ def test_descriptors_match_jax_defaults():
         assert set(t.default_hyper) == set(j.default_hyper), t.name
         for k, v in j.default_hyper.items():
             np.testing.assert_array_equal(np.asarray(t.default_hyper[k]), np.asarray(v))
-        th = t.canonical_hyper()
+        th = t.canonical_hyper(device="cpu")
         assert all(v.dtype == torch.float32 for v in th.values()), t.name
     with pytest.raises(ValueError):
         models.dd(0)

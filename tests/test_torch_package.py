@@ -42,22 +42,38 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/kernel_turns.py",
+                                    "scripts/assign_tilings.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts that run on the card import neither JAX nor the JAX package."""
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse((REPO / script).read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "torch" in tops and not tops & {"jax", "jaxlib", "common_tpu"}, sorted(tops)
+
+
 def test_tf32_is_off_and_the_sweeps_refuse_it():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     defn = st.model_definition(20, [models.niw(2)], k_max=4)
     data = ((torch.randn(20, 2), torch.ones(20)),)
-    s = st.initialize(defn, data, rng(0).generator)
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         for sweep in (blocked.sweep, blocked.sweep_fused, blocked.sweep_chains):
             with pytest.raises(RuntimeError, match="allow_tf32"):
-                sweep(s, data, rng(1).generator)
+                sweep(s, data, rng(1, "cpu").generator)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def test_gumbel_draws_are_finite_and_skip_masked_logits():
-    g = rng(0).generator
+    g = rng(0, "cpu").generator
     u = uniform_open((200000,), g)
     assert float(u.min()) > 0.0 and float(u.max()) < 1.0
     assert torch.isfinite(gumbel((200000,), g)).all()
@@ -69,32 +85,32 @@ def test_gumbel_draws_are_finite_and_skip_masked_logits():
 
 
 def test_beta_draws_mean():
-    g = rng(2).generator
+    g = rng(2, "cpu").generator
     a, b = torch.full((20000,), 2.0), torch.full((20000,), 5.0)
     v = beta(a, b, g)
     assert abs(v.mean().item() - 2.0 / 7.0) < 0.01
 
 
 def test_rng_handle_and_validation():
-    h = rng(5)
+    h = rng(5, "cpu")
     assert h.device == torch.device("cpu") and "seed=5" in repr(h)
     a = torch.rand(3, generator=h.generator)
-    b = torch.rand(3, generator=rng(5).generator)
+    b = torch.rand(3, generator=rng(5, "cpu").generator)
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        rng(1.5)
+        rng(1.5, "cpu")
     with pytest.raises(ValueError):
         models.niw(0)
     with pytest.raises(ValueError):
         validator.validate_one_of("x", ("a", "b"), "kernel name")
     defn = st.model_definition(4, [models.niw(2)], k_max=3)
     with pytest.raises(ValueError, match="data columns"):
-        st.initialize(defn, (), rng(0).generator)
+        st.initialize(defn, (), rng(0, "cpu").generator)
 
 
 def test_build_is_keyed_by_the_sources():
     names = [p.name for p in _build._sources()]
-    for src in ("gaussian_assign.cu", "suffstat.cu", "linear_assign.cu", "philox.cuh"):
+    for src in ("gaussian_assign.cu", "suffstat.cu", "linear_assign.cu", "philox.cuh", "tf32x3.cuh"):
         assert src in names
     digest = _build._digest()
     assert len(digest) == 16 and digest == _build._digest()

@@ -66,7 +66,7 @@ def _close(got, want, **kw):
 @pytest.mark.parametrize("fixed", [False, True])
 def test_scores_match_jax(fixed):
     js, _, _, _, _, _ = _problem(fixed)
-    s = convert.state_from_numpy(_leaves(js))
+    s = convert.state_from_numpy(_leaves(js), device="cpu")
     _close(st.score_assignment(s), jst.score_assignment(js))
     _close(st.score_likelihood(s), jst.score_likelihood(js))
     _close(st.score_joint(s), jst.score_joint(js))
@@ -77,7 +77,7 @@ def test_scores_match_jax(fixed):
 def test_heldout_logp_matches_jax(monkeypatch):
     monkeypatch.setattr(st, "HELDOUT_BATCH", 16)  # 37 rows: three batches, the last ragged
     js, _, _, _, _, _ = _problem()
-    s = convert.state_from_numpy(_leaves(js))
+    s = convert.state_from_numpy(_leaves(js), device="cpu")
     r = np.random.default_rng(5)
     Xh = r.normal(scale=3.0, size=(37, D)).astype(np.float32)
     mh = np.ones(37, np.float32)
@@ -92,7 +92,7 @@ def test_heldout_logp_matches_jax(monkeypatch):
 def test_initialize_and_compute_stats_match_jax(fixed):
     js, _, data, hyper, chp, z = _problem(fixed)
     defn = st.model_definition(N, [models.niw(D)], k_max=K)
-    s = st.initialize(defn, data, rng(0).generator, cluster_hp=chp,
+    s = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp=chp,
                       feature_hps=[hyper], assignment=z, fixed=fixed)
     want = _leaves(js)
     got = convert.state_to_numpy(s)
@@ -113,7 +113,7 @@ def test_initialize_and_compute_stats_match_jax(fixed):
 
 def test_restat_given_jax_z_matches_jax():
     js, jdata, data, _, _, _ = _problem()
-    s = convert.state_from_numpy(_leaves(js))
+    s = convert.state_from_numpy(_leaves(js), device="cpu")
     z = np.random.default_rng(8).integers(0, K, N).astype(np.int32)
     want = jblocked.restat(js, jdata, jnp.asarray(z))
     got = blocked.restat(s, data, torch.from_numpy(z))
@@ -127,7 +127,7 @@ def test_restat_given_jax_z_matches_jax():
 def test_state_round_trip_keeps_leaves(fixed):
     js, _, _, _, _, _ = _problem(fixed)
     leaves = _leaves(js)
-    back = convert.state_to_numpy(convert.state_from_numpy(leaves))
+    back = convert.state_to_numpy(convert.state_from_numpy(leaves, device="cpu"))
     assert back.keys() == leaves.keys()
     assert back["lik_names"] == leaves["lik_names"] and back["fixed"] == leaves["fixed"]
     pairs = [(back["assignments"], leaves["assignments"]), (back["counts"], leaves["counts"])]
@@ -149,12 +149,12 @@ def test_crp_assignment_follows_the_eppf():
     data = ((torch.zeros(n, 2), torch.ones(n)),)
 
     def score(part):
-        s = st.initialize(defn, data, rng(0).generator, cluster_hp={"alpha": alpha},
+        s = st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": alpha},
                           assignment=np.asarray(part, np.int32))
         return float(st.score_assignment(s))
 
     exact = dict(zip(*testutil.dist_on_all_clusterings(score, n)))
-    g = rng(3).generator
+    g = rng(3, "cpu").generator
 
     def sample_fn(m):
         return [testutil.permutation_canonical(
@@ -164,14 +164,14 @@ def test_crp_assignment_follows_the_eppf():
 
 
 def test_crp_assignment_respects_k_max():
-    z = st.sample_crp_assignment(rng(1).generator, 500, 3, 50.0)
+    z = st.sample_crp_assignment(rng(1, "cpu").generator, 500, 3, 50.0)
     assert z.dtype == torch.int32 and z.shape == (500,)
     assert set(z.unique().tolist()) == {0, 1, 2}
 
 
 def test_state_helpers():
     js, _, _, _, _, _ = _problem()
-    s = convert.state_from_numpy(_leaves(js))
+    s = convert.state_from_numpy(_leaves(js), device="cpu")
     assert s.n == N and s.k_max == K and s.nentities() == N
     np.testing.assert_array_equal(s.groups(), js.groups())
     np.testing.assert_array_equal(s.empty_groups(), js.empty_groups())
