@@ -18,8 +18,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    multi-chain assignment draw for draw on dense, non-triangular B_k
    (n=16421, D=256, K=64, C=4), equal to the single-chain kernel at C=1,
    and its distribution with independent chains (n=64, D=4, K=5, C=3, 300
-   seeds); the linear assignment draw for draw at 100k x 64, K=32 and at a
-   ragged N with D=300, and its distribution; scatter stats at 1M x 256,
+   seeds); the linear assignment draw for draw at 100k x 64, K=32, at a
+   ragged N with D=300, K=33, at D=61, K=70 (4-byte copies, three cluster
+   panels, a group of four cut short) and at 1,000,003 x 64, K=32 (many
+   tiles a block), and its distribution; scatter stats at 1M x 256,
    K=64 with masked rows and a ragged N (and exactly symmetric), and at a
    small shape against float64 on the host.
 3. The main path at 1M x 256, K_max=64: model_definition -> initialize
@@ -50,8 +52,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    iterations with the counts set to 0 just before. Checks launches,
    finite scores, counts, the held-out log density against the
    one-cluster state's, and the linear kernel draw for draw on the path's
-   own inputs; prints iterations/s, the kernel against its plain version
-   and the slice sampler's share.
+   own inputs and on the CRP start's; prints iterations/s, the kernel
+   against its plain version, its library yardstick warm and L2-cold, the
+   noise its inputs need, and the slice sampler's share.
 6. BASELINE config 1 by collapsed Gibbs: 10,000 x 2 rows around the three
    planted centers of `examples/dpmm.py` (scale 0.6, numpy seed 0),
    `models.niw(2)`, K_max=32, alpha=1, CRP initial state;
@@ -84,6 +87,17 @@ Gaussian assignment, X times the stacked B_k^T over row slices; for the
 scatter, torch.mm(X.T, X); for the linear assignment, torch.addmm. The
 scatter entry's `ms` is its two kernels with their chunk schedule,
 `sort_ms` the sort and search before them, `wrapper_ms` the whole call.
+The linear assignment runs for tens of microseconds, about as long as the
+host takes to issue a call. Its `ms`, `plain_ms` and `library_ms` are
+timed as every other kernel's, 20 calls back to back (`cuda_ms`), so the
+host's issue counts where it is slower than the card, as it does in the
+sweep; `device_ms` and `library_device_ms` time the same calls queued
+behind a spin kernel (`queued_ms`: the card's time alone); `ms_cold` and
+`library_ms_cold` time each launch alone after a 64 MB write that evicts X
+from the 50 MB L2 (`cold_ms`), as the sweep finds it. Phase 5's record
+(not the `kernels` line) gives the noise the kernel's inputs need, worked
+out in Python from the scores (`noise_work`), and the kernel's times at
+the CRP start, where the clusters lie close together.
 
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Needs a CUDA card: without one it exits 1.
@@ -153,6 +167,49 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SPIN_CYCLES = 20_000_000  # about 10 ms of the H100's clock
+FLUSH_BYTES = 64 << 20     # more than the 50 MB L2
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of `fn()` launched back to back, after one warm-up,
+    queued behind a spin kernel of about 10 ms: the host issues every launch
+    before the first runs, so the events time the card, not the issue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Median milliseconds of one `fn()` with its inputs out of L2: each
+    launch timed by its own events after a 64 MB write and a spin of about
+    0.5 ms, during which the host issues it."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    pairs = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        torch.cuda._sleep(SPIN_CYCLES // 20)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -486,7 +543,8 @@ def _check_linear(dev) -> None:
 
     from common_tpu_torch.ops.linear_assign import fused_linear_assign
 
-    for n, d, k, seed in ((N2, D2, K2, 41), (5000 + 13, 300, 33, 43)):
+    for n, d, k, seed in ((N2, D2, K2, 41), (5000 + 13, 300, 33, 43), (100, 61, 70, 47),
+                          (1_000_003, D2, K2, 53)):
         X, W, base = _linear_problem(n, d, k, seed, dev)
         z = fused_linear_assign(X, W, base, _seed(seed, dev))
         require_exact(linear_exact_check(z, X, W, base, _seed(seed, dev)),
@@ -833,6 +891,49 @@ def phase_chains(headline: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: path B, config 2 (Beta-Bernoulli DPMM + slice-sampled hypers)
 # ---------------------------------------------------------------------------
+def noise_line(need: dict, k: int) -> str:
+    return (f"{need['calls']:.4f} Philox calls of {-(-k // 4)} and {need['draws']:.4f} Gumbel draws "
+            f"of {k} a row; {need['single']:.4f} of the rows have a single cluster within reach")
+
+
+def linear_times(x, W, base, seed) -> dict:
+    """Kernel 3 and torch.addmm on the same inputs: back to back (`ms`),
+    on the card alone (`device_ms`) and L2-cold (`ms_cold`)."""
+    import torch
+
+    from common_tpu_torch.ops import linear_assign as la
+
+    def kernel3():
+        return la.fused_linear_assign(x, W, base, seed)
+
+    def library3():
+        return torch.addmm(base, x, W.T)
+
+    return {"ms": cuda_ms(kernel3, 20), "device_ms": queued_ms(kernel3, 20), "ms_cold": cold_ms(kernel3, 20),
+            "library_ms": cuda_ms(library3, 20), "library_device_ms": queued_ms(library3, 20),
+            "library_ms_cold": cold_ms(library3, 20)}
+
+
+def linear_at_start(s0, data, x, dev) -> dict:
+    """Kernel 3 on the CRP start's inputs (its own generator, so the driven
+    run is untouched): draw for draw, timed, and the noise they need."""
+    from common_tpu_torch import rng
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.ops import linear_assign as la
+
+    W, base, _ = blocked.linear_assign_inputs(s0, data, rng(SEED + 5, dev).generator)
+    seed = _seed(11, dev)
+    exact = require_exact(linear_exact_check(la.fused_linear_assign(x, W, base, seed), x, W, base, seed),
+                          f"linear_assign on path B's CRP start ({N2}x{D2}, K={K2}), draw for draw")
+    out = {**linear_times(x, W, base, seed), "mismatch": exact["mismatch"],
+           "noise_need": la.noise_work(x, W, base)}
+    log(f"linear_assign at the CRP start: kernel {out['ms']:.4f} ms back to back, "
+        f"{out['device_ms']:.4f} ms on the card alone, L2-cold {out['ms_cold']:.4f} ms; torch.addmm "
+        f"{out['library_ms']:.4f} / {out['library_device_ms']:.4f} / {out['library_ms_cold']:.4f} ms")
+    log(f"  noise these inputs need, worked out in Python: {noise_line(out['noise_need'], K2)}")
+    return out
+
+
 def phase_config2() -> dict:
     import torch
 
@@ -861,6 +962,7 @@ def phase_config2() -> dict:
     hp_kw = {"specs": {0: {"alpha": bounds, "beta": bounds}},
              "cluster": {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (1e-4, 1e4)}}
     run = runner(defn, data, s0, [("assign_blocked_fused", {}), ("slice_hp", hp_kw)])
+    start = linear_at_start(s0, data, x, dev)
 
     la.fused_linear_assign.launches = 0
     torch.cuda.synchronize()
@@ -924,9 +1026,9 @@ def phase_config2() -> dict:
     for _ in range(200):
         bool(evaluate() > 0)
     waited_ms = 1e3 * (time.perf_counter() - t0) / 200
-    queued_ms = cuda_ms(evaluate, 200)
+    eval_queued_ms = cuda_ms(evaluate, 200)
     log(f"one slice target evaluation: {waited_ms:.3f} ms with the host waiting on it, "
-        f"{queued_ms:.3f} ms queued back to back; slice_hp is about "
+        f"{eval_queued_ms:.3f} ms queued back to back; slice_hp is about "
         f"{hp_med / waited_ms:.0f} evaluations")
     hp_idle, _ = profile_sweep(lambda: slice_.hp(s, data, gen, **hp_kw))
 
@@ -936,24 +1038,31 @@ def phase_config2() -> dict:
     exact = require_exact(linear_exact_check(la.fused_linear_assign(x, W, base, seed),
                                              x, W, base, seed),
                           f"linear_assign on path B's inputs ({N2}x{D2}, K={K2}), draw for draw")
-    k3 = cuda_ms(lambda: la.fused_linear_assign(x, W, base, seed), 20)
+    t3 = linear_times(x, W, base, seed)
+    k3, k3_dev, k3_cold = t3["ms"], t3["device_ms"], t3["ms_cold"]
     p3 = cuda_ms(lambda: la.linear_assign_plain(x, W, base, gen), 20)
     y3 = {**bound(2.0 * N2 * K2 * D2, 4.0 * (N2 * D2 + K2 * D2 + K2 + N2)),
-          "library_ms": cuda_ms(lambda: torch.addmm(base, x, W.T), 20),
+          **{key: t3[key] for key in ("library_ms", "library_device_ms", "library_ms_cold")},
           "library": f"torch.addmm(base, X, W.T), X [{N2}, {D2}], W [{K2}, {D2}], fp32"}
-    log(f"linear_assign {N2}x{D2} K={K2}: kernel {k3:.4f} ms, plain {p3:.4f} ms; bound "
-        f"{y3['bound_ms']:.4f} ms ({y3['bound_by']}), share {y3['bound_ms'] / k3:.3f}; library "
-        f"{y3['library']}: {y3['library_ms']:.4f} ms")
+    need = la.noise_work(x, W, base)
+    log(f"linear_assign {N2}x{D2} K={K2}: kernel {k3:.4f} ms back to back, {k3_dev:.4f} ms on the "
+        f"card alone, L2-cold {k3_cold:.4f} ms; plain {p3:.4f} ms; bound {y3['bound_ms']:.4f} ms "
+        f"({y3['bound_by']}), share {y3['bound_ms'] / k3_dev:.3f} on the card alone "
+        f"({y3['bound_ms'] / k3_cold:.3f} cold); library {y3['library']}: {y3['library_ms']:.4f} ms "
+        f"back to back, {y3['library_device_ms']:.4f} ms on the card alone, L2-cold "
+        f"{y3['library_ms_cold']:.4f} ms")
+    log(f"  noise these inputs need, worked out in Python: {noise_line(need, K2)}")
     return {
         "kernel": {"name": "linear_assign", "route": "cuda",
                    "source": "common_tpu_torch/csrc/linear_assign.cu",
                    "replaces": "common_tpu/ops/linear_assign.py:67",
                    "launches": launches, "max_abs_err": exact["shortfall"],
                    "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
-                   "ms": k3, "plain_ms": p3, **y3},
+                   "ms": k3, "device_ms": k3_dev, "ms_cold": k3_cold, "plain_ms": p3, **y3},
+        "linear_noise_need": need, "linear_at_start": start,
         "iterations_per_s": ITERS2 / run_s,
         "fused_sweep_ms": sweep_med, "slice_hp_ms": hp_med, "slice_hp_idle_share": hp_idle,
-        "slice_eval_ms": waited_ms, "slice_eval_queued_ms": queued_ms,
+        "slice_eval_ms": waited_ms, "slice_eval_queued_ms": eval_queued_ms,
         "heldout_logp_per_dim": lp_dim, "one_cluster_logp_per_dim": lp_one,
     }
 

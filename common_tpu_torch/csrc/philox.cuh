@@ -31,12 +31,30 @@ __device__ __forceinline__ float uniform_open(uint32_t bits) {
   return fmaxf(u, 1e-7f);
 }
 
-// Standard Gumbel draw keyed on (seed, a, b, c): counter (a, b, c, 0). The
-// assignment kernels use a = row, b = cluster within its chain, c = chain,
-// so chain 0 (and every single-chain launch) draws the same stream.
+__device__ __forceinline__ float gumbel_of_bits(uint32_t bits) { return -logf(-logf(uniform_open(bits))); }
+
+// A draw of `gumbel_of_bits` lies in [-2.7799, 16.6355]: u runs from 1e-7
+// to 1 - 2^-24. So a score more than their spread, 19.4154 nats, below
+// another's can never win the argmax, whatever the two draws; kReach is
+// that spread with a margin (ops/linear_assign.py REACH is the same
+// number, and a test ties both to the draw's range).
+constexpr float kReach = 19.5f;
+
+// Standard Gumbel draw keyed on (seed, a, b, c): counter (a, b, c, 0), the
+// first output word. The Gaussian assignment kernels use a = row, b =
+// cluster within its chain, c = chain, so chain 0 (and every single-chain
+// launch) draws the same stream.
 __device__ __forceinline__ float gumbel(uint32_t seed, uint32_t a, uint32_t b, uint32_t c = 0u) {
   const uint4 bits = philox4x32_10(make_uint4(a, b, c, 0u), make_uint2(seed, 0x5EEDu));
-  return -logf(-logf(uniform_open(bits.x)));
+  return gumbel_of_bits(bits.x);
+}
+
+// The four words of one call with counter (row, group, 0, 1): the linear
+// assignment kernel's noise for clusters 4 group .. 4 group + 3, word j (x,
+// y, z, w) for cluster 4 group + j, each its own uniform. The counter's last
+// word, 1, keeps this stream apart from `gumbel`'s, whose last word is 0.
+__device__ __forceinline__ uint4 linear_words(uint32_t seed, uint32_t row, uint32_t group) {
+  return philox4x32_10(make_uint4(row, group, 0u, 1u), make_uint2(seed, 0x5EEDu));
 }
 
 }  // namespace philox

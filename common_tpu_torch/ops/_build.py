@@ -64,7 +64,7 @@ def _declare(lib):
     lib.gaussian_assign_chains_launch.restype = ci
     lib.scatter_stats_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.scatter_stats_launch.restype = ci
-    lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.linear_assign_launch.restype = ci
     return lib
 

@@ -102,8 +102,20 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
+def philox_key(seed: torch.Tensor):
+    """The kernels' Philox key (seed, 0x5EED), the seed as an int64 tensor."""
+    return seed.reshape(()).to(torch.int64) & _MASK32, 0x5EED
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel draws from 32-bit words (`csrc/philox.cuh` gumbel_of_bits):
+    the uniform from the top 24 bits, floored at 1e-7, then -log(-log u)."""
+    u = ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
+    return -torch.log(-torch.log(u))
+
+
 def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int, chain: int = 0) -> torch.Tensor:
-    """[len(rows), k] float32: the Gumbel noise the CUDA kernels add, in plain ops.
+    """[len(rows), k] float32: the Gumbel noise the Gaussian kernels add, in plain ops.
 
     Philox4x32-10 keyed on (seed, 0x5EED) with counter (row, cluster,
     chain, 0), the uniform from the top 24 bits of the first word, floored
@@ -113,10 +125,7 @@ def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int, chain: int = 0
     r = rows.to(torch.int64)[:, None].expand(-1, k)
     c = torch.arange(k, device=rows.device, dtype=torch.int64)[None, :].expand_as(r)
     zero = torch.zeros_like(r)
-    key0 = seed.reshape(()).to(torch.int64) & _MASK32
-    bits = philox4x32_10((r, c, zero + chain, zero), (key0, 0x5EED))[0]
-    u = ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
-    return -torch.log(-torch.log(u))
+    return gumbel_from_bits(philox4x32_10((r, c, zero + chain, zero), philox_key(seed))[0])
 
 
 def philox_scores(X, mu, binv, base, seed: torch.Tensor, row0: int = 0,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time this tree's Gaussian assignment and scatter kernels against an earlier
-tree's, in turns, on one NVIDIA card.
+"""Time this tree's assignment and scatter kernels against an earlier tree's,
+in turns, on one NVIDIA card.
 
     mkdir -p _scratch/parent
     git archive <commit> common_tpu_torch/csrc | tar -x -C _scratch/parent
@@ -16,10 +16,17 @@ each pair is reported:
   `gaussian_assign_chains_launch`: the same C entry points in both trees;
   the two trees' draws are compared row for row;
 - kernel 2, the scatter: each tree's kernels alone on rows already sorted
-  by cluster (the earlier tree's partial sums added as its wrapper did),
-  and each whole wrapper with its stable sort. The labels put 3 of the 8
+  by cluster, and each whole call with its stable sort, both trees with
+  this tree's chunk schedule (the earlier tree must have this tree's C
+  interface). The labels put 3 of the 8
   planted groups in one cluster (375k rows), as the main path's largest
-  cluster holds about a third of the rows.
+  cluster holds about a third of the rows;
+- kernel 3, `linear_assign_launch`, at config 2's shape (100k x 64 binary
+  rows, K = 32) on the two inputs of `scripts/linear_variants.py` (rows
+  around 32 well-separated profiles, and path B's CRP start), warm and
+  L2-cold, timed as that script times it (queued behind a spin kernel;
+  cold after a 64 MB write); each tree's draws are checked against the
+  plain scores plus its own noise stream.
 
 Prints the card's name and power limit, then one JSON line. Needs a card.
 """
@@ -38,16 +45,18 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from common_tpu_torch.ops import _build  # noqa: E402
 from common_tpu_torch.ops import gaussian_assign as ga  # noqa: E402
+from common_tpu_torch.ops import linear_assign as la  # noqa: E402
 from common_tpu_torch.ops import suffstat as ss  # noqa: E402
+from linear_variants import FLUSH_BYTES, cold_ms, crp_start, mismatch, problem, queued_ms  # noqa: E402
 
 N, D, K, C = 1_000_000, 256, 64, 4
-OLD_SPLITS = 8  # the earlier scatter wrapper's row slices per cluster
+N3, D3, K3 = 100_000, 64, 32  # kernel 3: config 2
 
 
 def build_old(csrc: Path):
     out = Path("_scratch") / "kernel_turns_old.so"
     out.parent.mkdir(exist_ok=True)
-    srcs = [str(csrc / "gaussian_assign.cu"), str(csrc / "suffstat.cu")]
+    srcs = [str(csrc / "gaussian_assign.cu"), str(csrc / "suffstat.cu"), str(csrc / "linear_assign.cu")]
     cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
            "-I", str(csrc), "-o", str(out), *srcs]
     subprocess.run(cmd, check=True)
@@ -55,7 +64,8 @@ def build_old(csrc: Path):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gaussian_assign_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.gaussian_assign_chains_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.scatter_stats_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.scatter_stats_launch.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     return lib
 
 
@@ -71,8 +81,8 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def in_turns(old_fn, new_fn, reps: int) -> dict:
-    t = [cuda_ms(f, reps) for f in (old_fn, new_fn, new_fn, old_fn)]
+def in_turns(old_fn, new_fn, reps: int, timer=cuda_ms) -> dict:
+    t = [timer(f, reps) for f in (old_fn, new_fn, new_fn, old_fn)]
     return {"old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "turns_ms": t}
 
 
@@ -124,20 +134,18 @@ def main() -> int:
 
     z = torch.where(labels < 3, 0, labels).to(torch.int32)
     order, offsets = ss.sort_by_cluster(z, K)
-    partial = torch.empty((OLD_SPLITS, K, D, D), device=dev)
 
-    def old_kernel():
-        err = old.scatter_stats_launch(x.data_ptr(), order.data_ptr(), offsets.data_ptr(), partial.data_ptr(),
-                                       D, K, OLD_SPLITS, stream)
+    def old_kernel(o=order, off=offsets):
+        cstart, lo, hi = ss.chunk_schedule(off, N, ss.rows_per_chunk(N, D, K))
+        partial = torch.empty((lo.numel(), D, D), device=dev)
+        out = torch.empty((K, D, D), device=dev)
+        err = old.scatter_stats_launch(x.data_ptr(), o.data_ptr(), lo.data_ptr(), hi.data_ptr(), cstart.data_ptr(),
+                                       partial.data_ptr(), out.data_ptr(), D, K, lo.numel(), stream)
         assert err == 0, err
-        return partial.sum(0)
+        return out
 
     def old_wrapper():
-        o, off = ss.sort_by_cluster(z, K)
-        err = old.scatter_stats_launch(x.data_ptr(), o.data_ptr(), off.data_ptr(), partial.data_ptr(),
-                                       D, K, OLD_SPLITS, stream)
-        assert err == 0, err
-        return partial.sum(0)
+        return old_kernel(*ss.sort_by_cluster(z, K))
 
     k2 = in_turns(old_kernel, lambda: ss.scatter_sorted(x, order, offsets), 5)
     k2w = in_turns(old_wrapper, lambda: ss.fused_scatter_stats(x, z, K), 5)
@@ -148,6 +156,30 @@ def main() -> int:
     k2["max_abs"] = new.abs().max().item()
     result["scatter_stats"] = k2
     print(f"kernel 2: {k2}", flush=True)
+
+    # kernel 3 at config 2's shape, on well-separated rows and on path B's CRP start
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    for case, (X3, W3, base3) in (("separated", problem(N3, D3, K3, 0, dev)), ("crp_start", crp_start(dev))):
+
+        def old_linear(X3=X3, W3=W3, base3=base3):
+            z3 = torch.empty(N3, dtype=torch.int32, device=dev)
+            err = old.linear_assign_launch(X3.data_ptr(), W3.data_ptr(), base3.data_ptr(), seed.data_ptr(),
+                                           z3.data_ptr(), N3, D3, K3, stream)
+            assert err == 0, err
+            return z3
+
+        def new_linear(X3=X3, W3=W3, base3=base3):
+            return la.fused_linear_assign(X3, W3, base3, seed)
+
+        k3 = in_turns(old_linear, new_linear, 50, queued_ms)
+        k3_cold = in_turns(old_linear, new_linear, 30, lambda f, reps: cold_ms(f, reps, flush))
+        k3.update({f"{key}_cold": v for key, v in k3_cold.items()})
+        scores = la.linear_scores(X3, W3, base3)
+        rows = torch.arange(N3, device=dev)
+        k3["old_mismatch"] = mismatch(old_linear(), scores + ga.philox_gumbel(seed, rows, K3))
+        k3["new_mismatch"] = mismatch(new_linear(), scores + la.linear_philox_gumbel(seed, rows, K3))
+        result[f"linear_assign_{case}"] = k3
+        print(f"kernel 3, {case}: {k3}", flush=True)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

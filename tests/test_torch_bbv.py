@@ -283,10 +283,15 @@ def test_linear_wrapper_dominance_padding_and_plain_seeding():
         la.fused_linear_assign(*(a.to("meta") for a in t), seed.to("meta"))
     with pytest.raises(ValueError, match="shape"):
         la.fused_linear_assign(t[0], t[1][:, :3], t[2], seed)
-    # the noise check: chain-0 Philox stream, as the CUDA kernel draws it
+    # the noise check, as the CUDA kernel draws it: word j of the Philox
+    # call with counter (row, g, 0, 1) is cluster 4g + j
+    from common_tpu_torch.ops.gaussian_assign import gumbel_from_bits, philox4x32_10, philox_key
     v = la.linear_philox_scores(*t, seed, row0=10) - la.linear_scores(*t)
-    from common_tpu_torch.ops.gaussian_assign import philox_gumbel
-    torch.testing.assert_close(v, philox_gumbel(seed, torch.arange(10, 1510), 5), rtol=0, atol=1e-4)
+    rows = torch.arange(10, 1510)
+    zero = torch.zeros_like(rows)
+    want = torch.cat([torch.stack(philox4x32_10((rows, zero + g, zero, zero + 1), philox_key(seed)), -1)
+                      for g in (0, 1)], -1)[:, :5]
+    torch.testing.assert_close(v, gumbel_from_bits(want), rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

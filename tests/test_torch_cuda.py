@@ -85,10 +85,13 @@ def test_cuda_chains_kernel_matches_plain(cuda_device, n, d, k, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,k", [(100_003, 64, 32), (3001, 20, 7), (777, 256, 40), (999, 300, 33)])
+@pytest.mark.parametrize("n,d,k", [(100_003, 64, 32), (3001, 20, 7), (777, 256, 40), (999, 300, 33),
+                                   (100, 61, 70), (4099, 64, 1)])
 def test_cuda_linear_kernel_matches_plain(cuda_device, n, d, k):
     """z is the argmax of X @ W^T + base plus the kernel's Philox noise on
-    every row outside the fp32 tie band (binary rows, bbv's W and base)."""
+    every row outside the fp32 tie band (binary rows, bbv's W and base):
+    one panel and chunk, several of either, a D of 4-byte copies, a group of
+    four clusters cut short, and a single cluster."""
     r = np.random.default_rng(n)
     p = r.uniform(0.05, 0.95, size=(k, d))
     X = torch.tensor(r.random((n, d)) < p[r.integers(0, k, n)], dtype=torch.float32,
@@ -100,7 +103,10 @@ def test_cuda_linear_kernel_matches_plain(cuda_device, n, d, k):
     before = la.fused_linear_assign.launches
     z = la.fused_linear_assign(X, W, base, seed)
     assert la.fused_linear_assign.launches == before + 1
-    _assert_exact(z, la.linear_philox_scores(X, W, base, seed))
+    if k == 1:
+        assert torch.equal(z, torch.zeros_like(z))
+    else:
+        _assert_exact(z, la.linear_philox_scores(X, W, base, seed))
 
 
 @pytest.mark.cuda

@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/kernel_turns.py",
-                                    "scripts/assign_tilings.py"])
+                                    "scripts/assign_tilings.py", "scripts/linear_variants.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card import neither JAX nor the JAX package."""
     import ast

@@ -1,12 +1,14 @@
-"""Why the Gaussian assignment kernels use 3xTF32 split products, not TF32.
+"""Why the assignment kernels use 3xTF32 split products, not TF32.
 
-The CUDA kernels (`common_tpu_torch/csrc/gaussian_assign.cu`, `tf32x3.cuh`)
-compute each row's quadratic form ||B_k (x - mu_k)||^2 on the tensor cores,
-whose TF32 operands keep 10 of fp32's 23 mantissa bits. This file emulates
-their arithmetic in numpy on main-path-like data and holds the scores
-against float64, in the units of the tie band that the card checks use
-(`chip_smoke.py` `exact_check`: 3e-5 * |top score| + 1e-3 nats): within it
-the kernels' draw may differ from the plain one, outside it never.
+The CUDA kernels (`common_tpu_torch/csrc/gaussian_assign.cu`,
+`linear_assign.cu`, `tf32x3.cuh`) compute each row's quadratic form
+||B_k (x - mu_k)||^2, or its linear score x . w_k + base_k, on the tensor
+cores, whose TF32 operands keep 10 of fp32's 23 mantissa bits. This file
+emulates their arithmetic in numpy on main-path-like and config-2-like data
+and holds the scores against float64, in the units of the tie band that the
+card checks use (`chip_smoke.py` `exact_check`: 3e-5 * |top score| + 1e-3
+nats): within it the kernels' draw may differ from the plain one, outside
+it never.
 
 - hi = x rounded to nearest at 10 mantissa bits (the kernels' bit trick),
   lo = x - hi exact in fp32, then truncated to TF32 as the tensor core
@@ -131,3 +133,52 @@ def test_split_halves_are_tf32_and_sum_back(passes):
     exact = x[:64, None].astype(np.float64) * x[None, 64:128].astype(np.float64)
     rel = np.abs(prod - exact) / np.abs(exact)
     assert rel.max() < (2.0 ** -21 if passes == 3 else 2.0 ** -10), rel.max()
+
+
+# ---------------------------------------------------------------------------
+# the linear assignment kernel: x . w_k + base_k
+# ---------------------------------------------------------------------------
+NL, DL, KL = 4000, 64, 32  # config 2's width and K
+
+
+@pytest.fixture(scope="module", params=["binary", "real"])
+def linear_reference(request):
+    """Config 2's scores (binary rows around Beta(0.5, 0.5) profiles, W =
+    logit p with p clipped at 1e-3, as the bbv draw gives) or the same W on
+    real-valued rows, whose TF32 split matters too: X, W, base, the float64
+    scores, each row's top two clusters and its tie band."""
+    r = np.random.default_rng(1)
+    p = np.clip(r.beta(0.5, 0.5, size=(KL, DL)), 1e-3, 1 - 1e-3)
+    centers = p[r.integers(0, KL, NL)]
+    if request.param == "binary":
+        X = (r.random((NL, DL)) < centers).astype(np.float32)
+    else:
+        X = (centers + r.normal(scale=0.5, size=(NL, DL))).astype(np.float32)
+    W = (np.log(p) - np.log1p(-p)).astype(np.float32)
+    base = (np.log1p(-p).sum(-1) + np.log(r.dirichlet(np.ones(KL)))).astype(np.float32)
+    s64 = X.astype(np.float64) @ W.astype(np.float64).T + base
+    top2 = np.argsort(-s64, axis=1)[:, :2]
+    band = RTOL * np.abs(np.take_along_axis(s64, top2[:, :1], 1)[:, 0]) + ATOL
+    return X, W, base, s64, top2, band
+
+
+def _linear_error_in_bands(linear_reference, passes):
+    X, W, base, s64, top2, band = linear_reference
+    s = _products(X, W, passes).astype(np.float64) + base
+    return np.abs(np.take_along_axis(s, top2, 1) - np.take_along_axis(s64, top2, 1)).max(1) / band
+
+
+def test_linear_three_tf32_passes_stay_inside_the_tie_band(linear_reference):
+    """3xTF32: every row's top two scores within 1/10 of its band of float64
+    (the emulation gives 0.004 on binary rows, 0.03 on real ones)."""
+    ratio = _linear_error_in_bands(linear_reference, passes=3)
+    assert ratio.max() < 0.1, ratio.max()
+
+
+def test_linear_one_tf32_pass_leaves_the_tie_band(linear_reference):
+    """One TF32 pass misses float64 by more than a whole band on most rows,
+    binary or not (W's rounding alone does it: 5 bands at worst on binary
+    rows, 22 on real ones in the emulation)."""
+    ratio = _linear_error_in_bands(linear_reference, passes=1)
+    assert (ratio > 1.0).mean() > 0.5, (ratio > 1.0).mean()
+    assert ratio.max() > 3.0, ratio.max()
