@@ -67,7 +67,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    sweeps bit for bit; runs one sweep under
    `torch.cuda.set_sync_debug_mode("error")`; prints rows/s, and the
    kernel launches per row and idle share of a traced sweep over the first
-   300 rows.
+   300 rows. Then subsample annealing over the same rows from an empty
+   state, `linear_schedule(10000, add_per_step=64, resample_per_step=64)`:
+   checks every row active, counts and stats against a restat, no kernel
+   launched; prints updates/s and the agreement with the planted labels (no
+   bar: one state).
+7. BASELINE config 5 by block-SMC on phase 3's rows (run before phase 5 frees
+   them): `smc.run_blocked` with P=16, block=8192, warmup=128,
+   rejuvenation_blocks=1, K_max=64, alpha=1, phase 3's hypers, the kernel
+   counts set to 0 just before. Checks every particle seats all N rows
+   with counts a bincount of its z, the top-weight particle's stats within
+   1e-4 of a plain restat, kernel 2's launches equal to 3 a block and no
+   other kernel, logz finite and at least phase 3's best joint score minus
+   1e-4 of its size, at most half the steps with ESS < 2; prints rows/s,
+   the resamples, the ESS, the weighted cloud's held-out density beside the
+   JAX record (history, other data), kernel 2 on one block's own inputs
+   against its plain version, and the idle share of one traced block step.
+8. Split-merge at 1M x 256 on phase 3's final state: the runner's
+   [assign_blocked_fused, split_merge(n_moves=4, t_scans=3)] once, then 4
+   moves timed one by one. Checks kernel launches (one sweep, 5 a merge
+   proposal and 6 a split), counts, stats against a plain restat, exact
+   zeros in empty slots; prints ms a move and what each proposed and
+   whether it was accepted.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -75,7 +96,10 @@ on the main path's z. The assignment kernels return labels, so their
 the kernel's choice below the plain maximum (0 where they agree, at most
 the fp32 tie band on a tie), with `mismatch` the rows outside the tie band
 that differ and `tie_rows` the rows inside it, on their path's own inputs.
-Each `launches` is the count from its path's driven run (phases 3, 4, 5).
+Each `launches` is the count from its path's driven run (phases 3, 4, 5,
+and 7 for the second scatter entry, kernel 2 on block-SMC's inputs: one
+block's P * B rows with the P particles' slots side by side, P * K
+clusters).
 `bound_ms` is the least time the H100 could take for the kernel's work on
 this run's inputs: the larger of its operations, as three TF32 passes on
 the tensor cores (fp32 accuracy by 3xTF32 split products, 495 TFLOP/s),
@@ -118,6 +142,11 @@ N_SWEEPS = 10
 N_CHAINS, CHAIN_SWEEPS = 4, 5
 N2, D2, K2, ITERS2 = 100_000, 64, 32, 8  # config 2
 N6, K6, SWEEPS6, LAST6, TRACE_ROWS6 = 10_000, 32, 13, 4, 300  # config 1, collapsed
+ADD6, RESAMPLE6 = 64, 64  # phase 6's subsample annealing schedule
+# config 5 by block-SMC, at the JAX record's settings (BENCH_MEASURED_R5.json:91-118)
+P7, BLOCK7, WARMUP7, REJUV7 = 16, 8192, 128, 1
+SLACK7 = 1e-4  # logz may sit this share of |bound| below phase 3's best joint (fp32 sums over 123 blocks)
+MOVES8, SCANS8 = 4, 3  # phase 8's split-merge moves at 1M x 256
 # generator seeds of phase 6's CRP initial state and of its sweeps (see PERF.md:
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
@@ -754,6 +783,10 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     require(symmetric, "scatter stats are not exactly symmetric")
     del rows, want64, got
     idle, _ = profile_sweep(lambda: run.run(gen, 1))
+    # phases 7 and 8 start from this chain: its best joint score bounds
+    # block-SMC's log Z, and split-merge moves its final state
+    headline["state3"] = run.get_latent()
+    headline["best_joint3"] = float(np.max(run.score_trace))
     return {
         "kernels": [
             {"name": "gaussian_assign", "route": "cuda",
@@ -886,6 +919,230 @@ def phase_chains(headline: dict) -> dict:
         "split_rhat": rhat, "ess": ess,
         "heldout_logp_per_dim": lps[:, -1].tolist(), "idle_share": idle,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: BASELINE config 5 by block-SMC
+# ---------------------------------------------------------------------------
+def _all_kernels():
+    from common_tpu_torch.ops import gaussian_assign as ga
+    from common_tpu_torch.ops import linear_assign as la
+    from common_tpu_torch.ops import suffstat as ss
+
+    return (ga.fused_gaussian_assign, ga.fused_gaussian_assign_chains, la.fused_linear_assign,
+            ss.fused_scatter_stats)
+
+
+def _zero_launches() -> None:
+    for k in _all_kernels():
+        k.launches = 0
+
+
+def _launches() -> dict:
+    return {k.__name__: k.launches for k in _all_kernels()}
+
+
+def require_bookkeeping(s, data, what: str, K: int) -> dict:
+    """counts = a bincount of z, stats within 1e-4 of a plain restat (of the
+    largest entry), empty slots exactly zero; returns the errors."""
+    import torch
+
+    from common_tpu_torch import state as st
+    from common_tpu_torch.kernels import blocked
+
+    require(torch.equal(s.counts, st._assignment_counts(s.assignments, K)), f"{what}: counts are not a bincount of z")
+    plain = blocked.restat(s, data, s.assignments)
+    errs = {}
+    for leaf, b in plain.stats[0].items():
+        a = s.stats[0][leaf]
+        errs[leaf] = (a - b).abs().max().item()
+        require(errs[leaf] <= 1e-4 * b.abs().max().item(), f"{what}: {leaf} off the plain restat by {errs[leaf]:.3e}")
+        require(bool((a[s.counts == 0] == 0).all()), f"{what}: an empty slot's {leaf} is not exactly zero")
+    log(f"{what}: counts a bincount of z; max|stats - plain restat| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (bar 1e-4 of the largest entry); empty slots 0")
+    return errs
+
+
+def phase_smc(headline: dict) -> dict:
+    """Config 5: `smc.run_blocked` over phase 3's rows at the JAX record's settings.
+
+    Kernel 2 launches: the seat of each block once, and each rejuvenation
+    window twice (its new and its old assignment), so (1 + 2 * REJUV7) a
+    block over ceil((N - WARMUP7) / BLOCK7) blocks; the warmup rows (fewer
+    than a block) add none.
+    """
+    import torch
+
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.kernels import smc
+    from common_tpu_torch.ops import suffstat as ss
+    from common_tpu_torch.parallel import unstack_state
+
+    dev = torch.device("cuda")
+    data, heldout, hyper = headline["data"], headline["heldout"], headline["hyper"]
+    x, _ = data[0]
+    defn = st.model_definition(N, [models.niw(D)], k_max=K_MAX)
+    gen = rng(SEED + 7, dev).generator
+    t0 = time.perf_counter()
+    parts = smc.init_particles(defn, data, gen, P7, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+    torch.cuda.synchronize()
+    log(f"config 5: {P7} empty particles: {time.perf_counter() - t0:.2f} s")
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smc.run_blocked(parts, data, gen, block=BLOCK7, warmup=WARMUP7, rejuvenation_blocks=REJUV7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launches()
+    n_blocks = -(-(N - WARMUP7) // BLOCK7)
+    expected = n_blocks * (1 + 2 * REJUV7)
+    log(f"run_blocked(P={P7}, block={BLOCK7}, warmup={WARMUP7}, rejuvenation_blocks={REJUV7}) at "
+        f"{N}x{D}, K_max={K_MAX}: {wall:.2f} s, {N / wall:.1f} rows/s; launches {launched} "
+        f"(scatter expected {expected} = {n_blocks} blocks x {1 + 2 * REJUV7})")
+    require(launched["fused_scatter_stats"] == expected,
+            f"scatter launches {launched['fused_scatter_stats']} != {expected}")
+    require(sum(launched.values()) == expected, f"another kernel ran in block-SMC: {launched}")
+
+    p = res.particles
+    require(p.counts.sum(-1).tolist() == [N] * P7, "a particle does not seat all N rows")
+    for i in range(P7):
+        require(torch.equal(p.counts[i], st._assignment_counts(p.assignments[i], K_MAX)),
+                f"particle {i}: counts are not a bincount of its z")
+    log(f"every particle seats {N} rows; counts a bincount of z; k_active {(p.counts > 0).sum(-1).tolist()}")
+    top = int(torch.argmax(res.log_w))
+    errs = require_bookkeeping(unstack_state(p, top), data, f"top-weight particle {top}", K_MAX)
+
+    logz, joint = float(res.logz), headline["best_joint3"]
+    ess = res.ess_trace.numpy()
+    low = int((ess < 2).sum())
+    log(f"logz {logz:.6e}; phase 3's best joint {joint:.6e}; logz - joint {logz - joint:.6e} "
+        f"(bar >= -{SLACK7} x |joint| = {-SLACK7 * abs(joint):.1f}); n_resamples {res.n_resamples} of "
+        f"{len(ess)} steps; ESS min {ess.min():.3f}, median {np.median(ess):.3f}, {low} steps below 2 "
+        f"(bar <= half)")
+    require(np.isfinite(logz) and logz >= joint - SLACK7 * abs(joint), "logz below the joint bound")
+    require(low <= len(ess) / 2, f"{low} of {len(ess)} steps with ESS < 2")
+    log("JAX record, history from other data on a TPU (BENCH_MEASURED_R5.json:91-118): logz -3.673e8, "
+        "76 resamples of 251 steps, held-out -1.42593 logp/dim")
+
+    # held-out density of the weighted cloud: log sum_p w_p p(x* | particle p)
+    t0 = time.perf_counter()
+    logw = torch.log_softmax(res.log_w, -1)
+    lps = torch.stack([st.heldout_logp(unstack_state(p, i), heldout) for i in range(P7)])  # [P, 4096]
+    lp_dim = torch.logsumexp(logw[:, None] + lps.double(), 0).mean().item() / D
+    log(f"weighted cloud held-out logp/dim ({HELDOUT} rows): {lp_dim:.5f} ({time.perf_counter() - t0:.2f} s); "
+        f"the JAX record's -1.42593 is history from other data")
+    require(np.isfinite(lp_dim), "held-out logp is not finite")
+
+    # kernel 2 on one block's own inputs: the last full block of the final cloud
+    off = WARMUP7 + (n_blocks - 2) * BLOCK7
+    xb = x[off:off + BLOCK7]
+    zb = p.assignments[:, off:off + BLOCK7]
+    flat = (zb + torch.arange(P7, device=dev)[:, None] * K_MAX).reshape(-1).to(torch.int32)
+    xr = xb.repeat(P7, 1)
+    got = ss.fused_scatter_stats(xr, flat, P7 * K_MAX)
+    want = ss.scatter_stats_plain(xr, flat, P7 * K_MAX)
+    err = (got - want).abs().max().item()
+    log(f"scatter on one SMC block ({P7} x {BLOCK7} rows, {P7 * K_MAX} slots): max|kernel - plain| "
+        f"{err:.3e} (bar 1e-4 x {want.abs().max().item():.3e})")
+    require(err <= 1e-4 * want.abs().max().item(), "scatter kernel disagrees on an SMC block")
+    del got, want
+    k2 = cuda_ms(lambda: ss.fused_scatter_stats(xr, flat, P7 * K_MAX), 5)
+    p2 = cuda_ms(lambda: ss.scatter_stats_plain(xr, flat, P7 * K_MAX), 1)
+    lib2 = cuda_ms(lambda: torch.mm(xr.T, xr), 5)
+    rows = xr.shape[0]
+    # the function's own bytes: the block's rows once, each particle's z, the
+    # P * K scatter matrices; the kernel reads the rows P times (the repeat)
+    y2 = {**bound(float(rows) * D * (D + 1), 4.0 * (BLOCK7 * D + rows + P7 * K_MAX * D * D)),
+          "library_ms": lib2, "library": f"torch.mm(X.T, X), X [{rows}, {D}], fp32"}
+    log(f"scatter_stats on one SMC block: the whole wrapper {k2:.3f} ms, plain {p2:.2f} ms, bound "
+        f"{y2['bound_ms']:.3f} ms ({y2['bound_by']}), library {lib2:.3f} ms")
+
+    # one block step (seat + rejuvenation) on the final cloud, traced; results discarded
+    cols = ((xb, data[0][1][off:off + BLOCK7]),)
+    valid = torch.ones(BLOCK7, dtype=torch.bool, device=dev)
+
+    def block_step():
+        q, _, _ = smc._seat_block(p, cols, valid, gen)
+        smc._rejuv_block(q, cols, zb, valid, gen)
+
+    idle, _ = profile_sweep(block_step)
+    return {
+        "kernel": {"name": "scatter_stats (block-SMC)", "route": "cuda",
+                   "source": "common_tpu_torch/csrc/suffstat.cu",
+                   "replaces": "common_tpu/ops/suffstat.py:75",
+                   "launches": launched["fused_scatter_stats"], "max_abs_err": err,
+                   "ms": k2, "plain_ms": p2, **y2},
+        "wall_s": wall, "rows_per_s": N / wall, "logz": logz, "best_joint3": joint,
+        "n_resamples": res.n_resamples, "steps": len(ess), "ess_min": float(ess.min()),
+        "ess_median": float(np.median(ess)), "ess_below_2": low, "heldout_logp_per_dim": lp_dim,
+        "top_particle_stats_err": errs, "idle_share": idle,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 8: split-merge at 1M x 256
+# ---------------------------------------------------------------------------
+def phase_splitmerge(headline: dict) -> dict:
+    """Split-merge on phase 3's final state through the runner: one fused
+    sweep, then MOVES8 moves at t_scans = SCANS8. Kernel 2 launches: one for
+    the sweep's restat, and per move t_scans + 2 (the anchor seeding, the
+    scans, the final scan) plus one for a split's proposal: 5 a merge and 6
+    a split at SCANS8 = 3, so 1 + (SCANS8 + 2) * merges + (SCANS8 + 3) *
+    splits, with the kinds from `splitmerge.move.proposed`. Then MOVES8 more
+    moves one at a time, timed, each held to its own kind's count."""
+    import torch
+
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.kernels import splitmerge
+    from common_tpu_torch.ops import suffstat as ss
+    from common_tpu_torch.runner import runner
+
+    dev = torch.device("cuda")
+    data = headline["data"]
+    defn = st.model_definition(N, [models.niw(D)], k_max=K_MAX)
+    gen = rng(SEED + 8, dev).generator
+    run = runner(defn, data, headline["state3"], [("assign_blocked_fused", {}),
+                                                  ("split_merge", {"n_moves": MOVES8, "t_scans": SCANS8})])
+    proposed = splitmerge.move.proposed
+    _zero_launches()
+    proposed.update(split=0, merge=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.run(gen, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launches()
+    splits, merges = proposed["split"], proposed["merge"]
+    expected = 1 + (SCANS8 + 2) * merges + (SCANS8 + 3) * splits
+    log(f"runner [assign_blocked_fused, split_merge(n_moves={MOVES8}, t_scans={SCANS8})] at {N}x{D}: "
+        f"{wall:.2f} s; launches {launched}; {splits} split and {merges} merge proposals, so scatter "
+        f"expected {expected} = 1 + {SCANS8 + 2} x {merges} + {SCANS8 + 3} x {splits}")
+    require(splits + merges == MOVES8 and launched["fused_scatter_stats"] == expected
+            and launched["fused_gaussian_assign"] == 1,
+            f"launches {launched} do not match one sweep, {merges} merges and {splits} splits")
+    s = run.get_latent()
+    require(int(s.counts.sum()) == N and np.isfinite(run.score_trace).all(), "bad counts or score")
+    errs = require_bookkeeping(s, data, "after the sweep and the moves", K_MAX)
+
+    ms, kinds = [], []
+    for _ in range(MOVES8):
+        before_k, before_n = int((s.counts > 0).sum()), ss.fused_scatter_stats.launches
+        before_split = proposed["split"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = splitmerge.move(s, data, gen, t_scans=SCANS8)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        split = proposed["split"] > before_split
+        n_move = ss.fused_scatter_stats.launches - before_n
+        require(n_move == SCANS8 + 2 + split, f"a {'split' if split else 'merge'} launched the scatter {n_move} times")
+        moved = int((s.counts > 0).sum()) - before_k
+        kinds.append(("split" if split else "merge") + (" accepted" if moved else " rejected"))
+    require_bookkeeping(s, data, "after the timed moves", K_MAX)
+    log(f"{MOVES8} timed moves: {[round(t, 1) for t in ms]} ms, {kinds}; k_active {int((s.counts > 0).sum())}")
+    return {"runner_s": wall, "launches": launched, "split_proposals": splits, "merge_proposals": merges,
+            "move_ms": ms, "moves": kinds,
+            "stats_err": errs, "k_active": int((s.counts > 0).sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -1078,9 +1335,6 @@ def phase_collapsed() -> dict:
 
     from common_tpu_torch import io, models, query, rng, scalar_functions as sf, state as st
     from common_tpu_torch.kernels import gibbs
-    from common_tpu_torch.ops import gaussian_assign as ga
-    from common_tpu_torch.ops import linear_assign as la
-    from common_tpu_torch.ops import suffstat as ss
     from common_tpu_torch.runner import runner
 
     dev = torch.device("cuda")
@@ -1095,10 +1349,7 @@ def phase_collapsed() -> dict:
     s0 = st.initialize(defn, data, rng(INIT6, dev).generator, cluster_hp={"alpha": 1.0})
     config = [("assign", {}), ("grid_cluster_hp", {"prior": sf.log_exponential(1.0),
                                                    "grid": np.geomspace(0.1, 10, 30)})]
-    kernels = (ga.fused_gaussian_assign, ga.fused_gaussian_assign_chains,
-               la.fused_linear_assign, ss.fused_scatter_stats)
-    for k in kernels:
-        k.launches = 0
+    _zero_launches()
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweeps.jsonl")
@@ -1125,7 +1376,7 @@ def phase_collapsed() -> dict:
     require([x["score_joint"] for x in lines] == scores.astype(np.float64).tolist(),
             "JSONL scores differ from the score trace")
     require(int(out.counts.sum()) == N6, "counts do not sum to N")
-    launched = {k.__name__: k.launches for k in kernels}
+    launched = _launches()
     require(not any(launched.values()), f"the collapsed path launched a hand-written kernel: {launched}")
 
     zs = torch.from_numpy(run.assignment_trace[-LAST6:]).to(dev)
@@ -1177,12 +1428,47 @@ def phase_collapsed() -> dict:
     per_row = launched_n / TRACE_ROWS6
     log(f"traced sweep of the first {TRACE_ROWS6} rows: {per_row:.1f} device kernels and copies "
         f"a row, idle share {idle:.3f}")
+    anneal = _anneal(defn, data, z_true)
     phase_s = time.perf_counter() - t_phase
     log(f"phase 6 wall time {phase_s:.1f} s")
-    return {"rows_per_s": N6 / assign_s, "assign_sweep_s": assign_s,
+    return {"anneal": anneal, "rows_per_s": N6 / assign_s, "assign_sweep_s": assign_s,
             "runner_sweep_s": sweep_s, "agreement": agree, "k_active": int(k_active[-1]),
             "alpha": float(out.cluster_hp["alpha"]), "launches_per_row": per_row,
             "idle_share": idle, "checkpoint_bytes": len(blob), "phase_s": phase_s}
+
+
+def _anneal(defn, data, z_true) -> dict:
+    """Subsample annealing over config 1's rows from an empty state:
+    linear_schedule(N6, add_per_step=ADD6, resample_per_step=RESAMPLE6)."""
+    import torch
+
+    from common_tpu_torch import rng
+    from common_tpu_torch.kernels import annealing
+
+    dev = torch.device("cuda")
+    gen = rng(SEED + 6, dev).generator
+    s0 = annealing.empty_state(defn, data, gen, cluster_hp={"alpha": 1.0})
+    schedule = annealing.linear_schedule(N6, add_per_step=ADD6, resample_per_step=RESAMPLE6)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = annealing.run(s0, data, gen, *schedule)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    updates = schedule[0] * (ADD6 + RESAMPLE6)
+    require(bool((s.assignments >= 0).all()), "annealing left a row unassigned")
+    launched = _launches()
+    require(not any(launched.values()), f"annealing launched a hand-written kernel: {launched}")
+    require_bookkeeping(s, data, "annealed state", K6)
+    z = s.assignments.long()
+    zt = torch.from_numpy(z_true).to(dev)
+    agree = ((z[:, None] == z[None, :]) == (zt[:, None] == zt[None, :])).double().mean().item()
+    log(f"annealing.run({schedule}) at {N6}x2: {wall:.2f} s, {updates} row updates, {updates / wall:.1f} "
+        f"updates/s, {N6 / wall:.1f} rows/s; every row active; co-assignment agreement with the planted "
+        f"labels {agree:.5f} (no bar: one state after about two sweeps' updates); k_active "
+        f"{int((s.counts > 0).sum())}")
+    return {"wall_s": wall, "updates": updates, "updates_per_s": updates / wall, "rows_per_s": N6 / wall,
+            "agreement": agree, "k_active": int((s.counts > 0).sum())}
 
 
 def main() -> int:
@@ -1197,15 +1483,17 @@ def main() -> int:
         headline = headline_data()
         result = phase_main_path(checks, headline)
         chains = phase_chains(headline)
+        smc_out = phase_smc(headline)
+        sm_out = phase_splitmerge(headline)
         del headline
         config2 = phase_config2()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel")]
+    kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2,
-                    "collapsed": collapsed, "card": env["card"]}))
+                    "collapsed": collapsed, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {

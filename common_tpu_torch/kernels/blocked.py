@@ -55,21 +55,24 @@ def stick_break_log_weights(generator, counts, alpha):
 
     v_k ~ Beta(1 + n_k, alpha + sum_{j>k} n_j), clipped to [1e-7, 1 - 1e-7];
     the last stick takes the rest (so sum w = 1 under truncation).
+    Batched over leading axes of `counts` (a [P, K] particle stack with
+    alpha [P]); one state's [K] counts and 0-d alpha draw as before.
     """
     c = counts.to(alpha.dtype)
     total_after = c.flip(-1).cumsum(-1).flip(-1) - c  # sum_{j>k} n_j
-    v = beta(1.0 + c, alpha + total_after, generator).clamp(1e-7, 1.0 - 1e-7)
+    v = beta(1.0 + c, alpha[..., None] + total_after, generator).clamp(1e-7, 1.0 - 1e-7)
     log1mv = torch.log1p(-v)
-    cum = torch.cat([torch.zeros_like(log1mv[:1]), torch.cumsum(log1mv[:-1], 0)])
+    cum = torch.cat([torch.zeros_like(log1mv[..., :1]), torch.cumsum(log1mv[..., :-1], -1)], -1)
     logw = torch.log(v) + cum
     # final stick absorbs the remainder: w_K = prod_{j<K} (1 - v_j)
-    return torch.cat([logw[:-1], log1mv[:-1].sum().reshape(1)])
+    return torch.cat([logw[..., :-1], log1mv[..., :-1].sum(-1, keepdim=True)], -1)
 
 
 def dirichlet_log_weights(generator, counts, alphas):
-    """Fixed-K: log w with w ~ Dirichlet(alpha + n) (blocked finite mixture)."""
+    """Fixed-K: log w with w ~ Dirichlet(alpha + n) (blocked finite mixture),
+    batched over leading axes as `stick_break_log_weights`."""
     g = standard_gamma(alphas + counts.to(alphas.dtype), generator)
-    return torch.log(torch.clamp(g / g.sum(), min=1e-30))
+    return torch.log(torch.clamp(g / g.sum(-1, keepdim=True), min=1e-30))
 
 
 def _log_weights(state: MixtureState, generator):
@@ -183,18 +186,69 @@ def _prior_fallback(z, logw, mask, generator):
 
 
 def _onehot(z, m, K):
-    """[N, K] one-hot of z; masked rows (m == 0) are counted nowhere."""
+    """[..., N, K] one-hot of z [..., N]; masked rows (m == 0) are counted nowhere."""
     zi = torch.where(m > 0, z, K)
-    return zi, (zi[:, None] == torch.arange(K, device=z.device)).to(m.dtype)
+    return zi, (zi[..., None] == torch.arange(K, device=z.device)).to(m.dtype)
 
 
 def _fused_niw_stats(x, m, z, K):
-    """niw suffstats of one assignment: n and sum_x by one-hot, sum_xxT by the kernel."""
+    """niw suffstats of one assignment z [N], or of P at once (z [P, N], leaves
+    [P, K, ...]): n and sum_x by one-hot, sum_xxT by the kernel in one launch.
+
+    For P assignments the kernel sees the rows repeated P times and the
+    P * K slots side by side (slot k of assignment p is cluster p * K + k).
+    """
     zi, onehot = _onehot(z, m, K)
-    return {"n": onehot.sum(0), "sum_x": onehot.T @ x, "sum_xxT": fused_scatter_stats(x, zi, K)}
+    stats = {"n": onehot.sum(-2), "sum_x": onehot.transpose(-1, -2) @ x}
+    if z.dim() == 1:
+        return {**stats, "sum_xxT": fused_scatter_stats(x, zi, K)}
+    P = z.shape[0]
+    offset = torch.arange(P, device=z.device)[:, None] * K
+    flat = torch.where((zi >= 0) & (zi < K), zi + offset, P * K).reshape(-1).to(torch.int32)
+    sum_xxT = fused_scatter_stats(x.repeat(P, 1), flat, P * K)
+    return {**stats, "sum_xxT": sum_xxT.reshape(P, K, *sum_xxT.shape[1:])}
 
 
-def sweep_fused(state: MixtureState, data, generator) -> MixtureState:
+def block_stats(state: MixtureState, data_cols, z, valid, K=None):
+    """Per-feature suffstats of the rows `data_cols` under assignment z.
+
+    Rows with `valid` False, a zero mask or z outside [0, K) add nothing. K
+    defaults to the state's k_max (split-merge asks for 2). One state's z
+    [B] gives leaves [K, ...]; a particle stack's z [P, B] gives [P, K, ...].
+    The suffstat rebuild of block-SMC and split-merge:
+
+    - an niw feature on the card: n and sum_x by one-hot, sum_xxT by the
+      scatter kernel (`ops/suffstat.py`), one launch for all P assignments;
+    - on the CPU, or any other likelihood: `stats_from_assignments` over
+      the rows repeated P times, the P * K slots side by side.
+
+    The hypers set only the dtype and the leaves' shapes here, so a
+    stack's first particle's serve for all.
+    """
+    K = state.k_max if K is None else K
+    stacked = state.counts.dim() == 2
+    P = z.shape[0] if stacked else 1
+    zz = z if stacked else z[None]
+    out = []
+    for (x, mask), lik, hyper in zip(data_cols, state.likelihoods(), state.hypers):
+        if lik.name == "niw" and x.device.type != "cpu":
+            m = mask.to(x.dtype) * valid.to(x.dtype)
+            out.append(_fused_niw_stats(x, m, z.to(torch.int32), K))
+            continue
+        keep = valid & (zz >= 0) & (zz < K)
+        if not stacked:
+            out.append(lik.stats_from_assignments(hyper, x, mask, torch.where(keep[0], z, K), K))
+            continue
+        offset = torch.arange(P, device=z.device)[:, None] * K
+        gid = torch.where(keep, zz.to(torch.int64) + offset, P * K).reshape(-1)
+        reps = (P,) + (1,) * (x.dim() - 1)
+        s = lik.stats_from_assignments({k: v[0] for k, v in hyper.items()}, x.repeat(reps),
+                                       mask.repeat(P), gid, P * K)
+        out.append({k: v.reshape(P, K, *v.shape[1:]) for k, v in s.items()})
+    return tuple(out)
+
+
+def sweep_fused(state: MixtureState, data, generator, fused_restat: bool = True) -> MixtureState:
     """Blocked sweep through the hand-written kernels (single niw or bbv feature).
 
     Same sampler as `sweep`. The assignment kernel scores, adds Gumbel
@@ -202,7 +256,10 @@ def sweep_fused(state: MixtureState, data, generator) -> MixtureState:
     the suffstat kernel rebuilds sum_xxT in N*D^2 multiply-adds; counts, n
     and sum_x stay plain tensor ops. bbv goes to `_sweep_fused_bbv`.
     Fixed-K (Dirichlet) and DP (stick-breaking) weights both work. On CPU
-    tensors the kernels' plain versions run.
+    tensors the kernels' plain versions run. fused_restat=False rebuilds
+    the niw stats through `restat` (plain tensor ops) instead of the
+    suffstat kernel, as in the JAX package; the bbv restat is one product
+    either way.
     """
     _require_fp32()
     if state.lik_names == ("bbv",):
@@ -215,6 +272,8 @@ def sweep_fused(state: MixtureState, data, generator) -> MixtureState:
     z = fused_gaussian_assign(x, mu, binv, base, _device_seed(generator, x.device))
     m = mask.to(x.dtype)
     z = _prior_fallback(z, logw, m, generator)
+    if not fused_restat:
+        return restat(state, data, z)
     return dataclasses.replace(
         state, assignments=z, counts=state_mod._assignment_counts(z, K),
         stats=(_fused_niw_stats(x, m, z, K),),

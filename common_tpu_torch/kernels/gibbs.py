@@ -50,13 +50,17 @@ def _row_sweep_step(data, m: int, generator: torch.Generator, state: MixtureStat
     """One row of a collapsed-Gibbs sweep (remove, score, sample, add), in
     place on `state`, a working copy. `noise` is the row's [K] Gumbel draw.
     Returns (state, the chosen slot as a 0-d device tensor).
+
+    A stack of P states (`parallel.stack_states`) takes [P, K] noise and
+    moves row `eid` in every state at once; the slot is then [P].
     """
     st = state_mod.remove_value_(state, data, eid)
     liks = st.likelihoods()
+    hypers = state_mod.slot_hypers(st)
     aux = _aux_slot_mask(st.counts, m)
 
     # non-conjugate models: fresh prior draws on the aux slots (Neal-8)
-    for lik, hyper, stats_f in zip(liks, st.hypers, st.stats):
+    for lik, hyper, stats_f in zip(liks, hypers, st.stats):
         if not lik.conjugate:
             stats_f.update(lik.refresh_latents(generator, hyper, stats_f, aux))
 
@@ -64,7 +68,7 @@ def _row_sweep_step(data, m: int, generator: torch.Generator, state: MixtureStat
     if st.fixed:
         logp = state_mod.crp_prior_scores(st)
     else:
-        alpha = st.cluster_hp["alpha"]
+        alpha = st.cluster_hp["alpha"][..., None]
         counts_f = st.counts.to(alpha.dtype)
         neg_inf = torch.full_like(counts_f, -math.inf)
         logp = torch.where(
@@ -72,11 +76,9 @@ def _row_sweep_step(data, m: int, generator: torch.Generator, state: MixtureStat
             torch.log(counts_f),
             torch.where(aux, torch.log(alpha) - math.log(m), neg_inf),
         )
-    for (x, mask), lik, hyper, stats_f in zip(data, liks, st.hypers, st.stats):
-        s = lik.pred_logpdf(hyper, stats_f, x[eid])
-        logp = logp + s * mask[eid].to(s.dtype)
+    logp = logp + state_mod.pred_scores(st, data, eid)
 
-    gid = torch.argmax(logp + noise)
+    gid = torch.argmax(logp + noise, dim=-1)
     state_mod.add_value_(st, data, eid, gid)
     return st, gid
 

@@ -39,13 +39,22 @@ def _as_tensor(v, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _slot(gid, device) -> torch.Tensor:
-    """Cluster slot `gid` (an int or a 0-d tensor) as a [1] int64 index on `device`.
+    """Cluster slot `gid` (an int, a 0-d tensor or an [M] tensor of slots) as
+    an [M] int64 index on `device` (M = 1 for an int or a 0-d tensor).
 
     A device tensor stays on the device, so the index never waits for it.
     """
     if torch.is_tensor(gid):
-        return gid.reshape(1).to(torch.int64)
+        return gid.reshape(-1).to(torch.int64)
     return torch.full((1,), int(gid), dtype=torch.int64, device=device)
+
+
+def _per_slot(v, like: torch.Tensor):
+    """A number, a 0-d tensor or an [M] tensor (one value a slot) shaped to
+    broadcast against `like` [M, ...]."""
+    if torch.is_tensor(v) and v.dim() == 1:
+        return v.reshape(-1, *(1,) * (like.dim() - 1))
+    return v
 
 
 def fold(stats: Stats, tx: Stats, sign) -> Stats:
@@ -56,17 +65,22 @@ def fold(stats: Stats, tx: Stats, sign) -> Stats:
 def scatter_fold_(stats: Stats, gid, tx: Stats, sign) -> Stats:
     """Add sign * tx, one row's contribution, into cluster slot `gid`, in place.
 
-    Leaves of `stats` have a leading cluster axis [K, ...]; `sign` is a
-    number or a 0-d tensor.
+    Leaves of `stats` have a leading slot axis [K, ...]; `gid` is an int, a
+    0-d tensor, or an [M] tensor of distinct slots that each take the
+    contribution (a particle stack's flattened [P * K] axis, one slot a
+    particle). `sign` is a number, a 0-d tensor or [M]; tx's leaves
+    broadcast to [M, ...].
     """
     for k, s in stats.items():
         idx = _slot(gid, s.device)
-        s.index_add_(0, idx, (sign * tx[k].to(s.dtype)).unsqueeze(0))
+        src = _per_slot(sign, s) * tx[k].to(s.dtype)
+        s.index_add_(0, idx, src.expand(idx.numel(), *s.shape[1:]))
     return stats
 
 
 def zero_slot_(stats: Stats, gid, keep) -> Stats:
-    """Multiply cluster slot `gid` by `keep` (0 clears it), in place.
+    """Multiply cluster slot `gid` by `keep` (0 clears it), in place; `gid`
+    as in `scatter_fold_`, `keep` a number, a 0-d tensor or one value a slot.
 
     Kills float drift when a cluster empties: exact-sum suffstats
     accumulate rounding error across add/remove cycles, and clearing an
@@ -75,7 +89,8 @@ def zero_slot_(stats: Stats, gid, keep) -> Stats:
     """
     for s in stats.values():
         idx = _slot(gid, s.device)
-        s.index_copy_(0, idx, s.index_select(0, idx) * keep)
+        rows = s.index_select(0, idx)
+        s.index_copy_(0, idx, rows * _per_slot(keep, rows))
     return stats
 
 
@@ -96,6 +111,9 @@ class Likelihood:
     conjugate: bool = True
     # suffstat-dict keys that are explicit latents, not additive sums
     latent_leaves: tuple = ()
+    # rows are scalars, and pred_logpdf broadcasts rows [M, 1, ...] against
+    # the stats' batch axes
+    scalar_rows: bool = False
 
     # --- schema ---------------------------------------------------------
     def default_hyper(self) -> Dict[str, Any]:
@@ -157,12 +175,24 @@ class Likelihood:
         raise NotImplementedError
 
     def predictive(self, hyper, stats):
-        """The posterior predictive's factors, computed once for many rows."""
-        raise NotImplementedError
+        """The posterior predictive's factors, computed once for many rows.
+
+        Generic: the (hyper, stats) pair itself, which `predictive_logpdf`
+        scores through `pred_logpdf`. niw and bbv factor theirs once.
+        """
+        return {"hyper": hyper, "stats": stats}
 
     def predictive_logpdf(self, pred, X):
-        """[M, *batch] predictive log density of rows X [M, ...] from `predictive`."""
-        raise NotImplementedError
+        """[M, *batch] predictive log density of rows X [M, ...] from `predictive`.
+
+        Generic: one `pred_logpdf` call for all M rows where the rows are
+        scalars (`scalar_rows`: X lifted to [M, 1, ...] against the stats'
+        batch axes), else one call a row (dd, dm).
+        """
+        hyper, stats = pred["hyper"], pred["stats"]
+        if self.scalar_rows:
+            return self.pred_logpdf(hyper, stats, X.reshape(-1, *(1,) * stats["n"].dim()))
+        return torch.stack([self.pred_logpdf(hyper, stats, x) for x in X])
 
     def marginal_loglik(self, hyper, stats):
         """Log marginal likelihood of the data summarized in stats."""

@@ -20,6 +20,7 @@ from common_tpu_torch.rng import beta as beta_draw
 class BB(base.Likelihood):
     name = "bb"
     conjugate = True
+    scalar_rows = True
 
     def default_hyper(self):
         return {"alpha": 1.0, "beta": 1.0}

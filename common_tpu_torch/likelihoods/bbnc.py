@@ -31,6 +31,7 @@ def _safe_p(p):
 class BBNC(base.Likelihood):
     name = "bbnc"
     conjugate = False
+    scalar_rows = True
     latent_leaves = ("p",)
     latent_bounds = {"p": (_EPS, 1.0 - _EPS)}
 

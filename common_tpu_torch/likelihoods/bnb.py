@@ -26,6 +26,7 @@ def _log_nb_coef(x, r):
 class BNB(base.Likelihood):
     name = "bnb"
     conjugate = True
+    scalar_rows = True
 
     def default_hyper(self):
         return {"alpha": 1.0, "beta": 1.0, "r": 1.0}

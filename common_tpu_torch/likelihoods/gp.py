@@ -19,6 +19,7 @@ from common_tpu_torch.rng import standard_gamma
 class GP(base.Likelihood):
     name = "gp"
     conjugate = True
+    scalar_rows = True
 
     def default_hyper(self):
         return {"alpha": 1.0, "inv_beta": 1.0}

@@ -32,6 +32,7 @@ def _student_t_logpdf(x, df, loc, scale_sq):
 class NICH(base.Likelihood):
     name = "nich"
     conjugate = True
+    scalar_rows = True
 
     def default_hyper(self):
         return {"mu": 0.0, "kappa": 1.0, "sigmasq": 1.0, "nu": 1.0}

@@ -71,3 +71,15 @@ def beta(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator) -> torch.
     g1 = standard_gamma(a, generator)
     g2 = standard_gamma(b, generator)
     return g1 / (g1 + g2)
+
+
+def host_generator(generator: torch.Generator) -> torch.Generator:
+    """A CPU generator seeded by one draw from `generator`.
+
+    Samplers that pick rows (SMC's rejuvenation, subsample annealing) draw
+    the row indices from it as Python ints: the entity ops take a row as
+    an int, and a draw on the card would cost a device read a row. The
+    seed is the one read.
+    """
+    seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+    return torch.Generator().manual_seed(int(seed))

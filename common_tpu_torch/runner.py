@@ -27,7 +27,7 @@ import torch
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
-from common_tpu_torch.kernels import blocked, gibbs, slice_
+from common_tpu_torch.kernels import blocked, gibbs, slice_, splitmerge
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.utils import diagnostics
 
@@ -42,6 +42,19 @@ def _k_assign_resample(state, data, generator, **kw):
 
 def _k_assign_fixed(state, data, generator, **kw):
     return gibbs.assign_resample(state, data, generator, m=1)
+
+
+def _k_assign_blocked(state, data, generator, **kw):
+    return blocked.sweep(state, data, generator)
+
+
+def _k_assign_blocked_fused(state, data, generator, tile_n=None, k_tile=None,
+                            interpret=False, fused_restat=True):
+    # tile_n, k_tile and interpret tile the JAX package's Pallas kernels on
+    # the TPU; the CUDA kernels pick their own tiling, so they mean nothing
+    # here and are accepted for configs written for the JAX runner.
+    del tile_n, k_tile, interpret
+    return blocked.sweep_fused(state, data, generator, fused_restat=fused_restat)
 
 
 def _k_grid_feature_hp(state, data, generator, **kw):
@@ -69,14 +82,15 @@ KERNELS: Dict[str, Callable] = {
     "assign": _k_assign,
     "assign_resample": _k_assign_resample,
     "assign_fixed": _k_assign_fixed,
-    "assign_blocked": blocked.sweep,
-    "assign_blocked_fused": blocked.sweep_fused,
+    "assign_blocked": _k_assign_blocked,
+    "assign_blocked_fused": _k_assign_blocked_fused,  # kw: fused_restat (tile_n, k_tile, interpret ignored)
     "grid_feature_hp": _k_grid_feature_hp,  # kw: specs
     "grid_cluster_hp": _k_grid_cluster_hp,  # kw: prior, grid
     "ew_cluster_hp": _k_ew_cluster_hp,  # kw: a, b
     "theta": _k_theta,
     "slice_theta": _k_slice_theta,  # kw: w
     "slice_hp": slice_.hp,  # kw: specs, cluster
+    "split_merge": splitmerge.moves,  # kw: n_moves, t_scans
 }
 
 

@@ -241,33 +241,58 @@ def _row_txs(state: MixtureState, data, eid: int):
     ]
 
 
+def slot_hypers(state: MixtureState):
+    """The hypers, shaped to broadcast against the [..., K, ...] stats: a
+    stack's [P, ...] leaves lifted to [P, 1, ...]; one state's as they are."""
+    if state.counts.dim() == 1:
+        return state.hypers
+    return tuple({k: v.unsqueeze(1) for k, v in h.items()} for h in state.hypers)
+
+
+def _flat_slots(state: MixtureState, slot):
+    """(slot as indices [M] into the flattened [..., K] slot axes, counts and
+    stats with those axes flattened, as views). One state: M = 1 and the
+    state's own tensors. A stack of P states: slot [P], one a state, and
+    M = P."""
+    if state.counts.dim() == 1:
+        return slot, state.counts, state.stats
+    n_p, k = state.counts.shape
+    flat = slot + k * torch.arange(n_p, device=state.device)
+    stats = tuple({key: v.view(n_p * k, *v.shape[2:]) for key, v in s.items()} for s in state.stats)
+    return flat, state.counts.view(-1), stats
+
+
 def remove_value_(state: MixtureState, data, eid: int) -> MixtureState:
     """Unassign row `eid` in place: downdate counts and suffstats, and
-    zero-clear a slot the row leaves empty.
+    zero-clear a slot the row leaves empty. Also unassigns it in every
+    state of a stack (`parallel.stack_states`) at once.
 
     `eid` is a Python int; the row's old slot stays a device tensor, so
     nothing here waits for the device.
     """
-    old = state.assignments[eid]
+    old = state.assignments[..., eid]
     present = old >= 0
-    safe = old.clamp(min=0).to(torch.int64).reshape(1)
-    state.counts.index_add_(0, safe, -present.to(state.counts.dtype).reshape(1))
-    emptied = (state.counts.index_select(0, safe)[0] == 0) & present
-    for txf, stats_f in zip(_row_txs(state, data, eid), state.stats):
+    idx, counts, stats = _flat_slots(state, lik_base._slot(old.clamp(min=0), state.device))
+    present = present.reshape(-1)
+    counts.index_add_(0, idx, -present.to(counts.dtype))
+    emptied = (counts.index_select(0, idx) == 0) & present
+    for txf, stats_f in zip(_row_txs(state, data, eid), stats):
         sign = -present.to(next(iter(stats_f.values())).dtype)
-        lik_base.scatter_fold_(stats_f, safe, txf, sign)
-        lik_base.zero_slot_(stats_f, safe, ~emptied)
-    state.assignments[eid].fill_(-1)  # `[eid] = -1` would copy the -1 from the host and wait
+        lik_base.scatter_fold_(stats_f, idx, txf, sign)
+        lik_base.zero_slot_(stats_f, idx, ~emptied)
+    state.assignments[..., eid].fill_(-1)  # `[eid] = -1` would copy the -1 from the host and wait
     return state
 
 
 def add_value_(state: MixtureState, data, eid: int, gid) -> MixtureState:
-    """Assign row `eid` to slot `gid` (an int or a 0-d device tensor) in place."""
-    idx = lik_base._slot(gid, state.device)
-    for txf, stats_f in zip(_row_txs(state, data, eid), state.stats):
+    """Assign row `eid` to slot `gid` (an int or a 0-d device tensor) in
+    place; in a stack of P states, row `eid` of state p to slot gid[p]."""
+    slot = lik_base._slot(gid, state.device)
+    idx, counts, stats = _flat_slots(state, slot)
+    for txf, stats_f in zip(_row_txs(state, data, eid), stats):
         lik_base.scatter_fold_(stats_f, idx, txf, 1.0)
-    state.assignments[eid] = idx[0]
-    state.counts.index_add_(0, idx, torch.ones_like(idx, dtype=state.counts.dtype))
+    state.assignments[..., eid] = slot.reshape(state.assignments.shape[:-1])
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=counts.dtype))
     return state
 
 
@@ -307,13 +332,21 @@ def repad(state: MixtureState, new_k_max: int) -> MixtureState:
     )
 
 
-def score_value(state: MixtureState, data, eid: int):
-    """[K] log p(assign row eid to each slot): CRP prior + likelihoods."""
-    logp = crp_prior_scores(state)
-    for (x, mask), lik, hyper, stats_f in zip(data, state.likelihoods(), state.hypers, state.stats):
+def pred_scores(state: MixtureState, data, eid: int):
+    """[K] sum over features of row eid's posterior-predictive log density
+    in each slot, masked cells 0 ([P, K] for a stack of P states)."""
+    total = None
+    for (x, mask), lik, hyper, stats_f in zip(data, state.likelihoods(), slot_hypers(state), state.stats):
         s = lik.pred_logpdf(hyper, stats_f, x[eid])
-        logp = logp + s * mask[eid].to(s.dtype)
-    return logp
+        s = s * mask[eid].to(s.dtype)
+        total = s if total is None else total + s
+    return total
+
+
+def score_value(state: MixtureState, data, eid: int):
+    """[K] log p(assign row eid to each slot): CRP prior + likelihoods
+    ([P, K] for a stack of P states)."""
+    return crp_prior_scores(state) + pred_scores(state, data, eid)
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +410,7 @@ def crp_prior_scores(state: MixtureState):
 
     CRP: log n_k for active slots; log alpha on the first empty slot.
     Fixed-K Dirichlet: log(n_k + alpha_k) on every slot.
+    Batched over leading axes: a [P, K] particle stack scores [P, K].
     """
     if state.fixed:
         alphas = state.cluster_hp["alphas"]
@@ -386,10 +420,10 @@ def crp_prior_scores(state: MixtureState):
     active = state.counts > 0
     crp = torch.where(active, torch.log(counts_f), torch.full_like(counts_f, -torch.inf))
     empty = (~active).to(torch.int32)
-    can_open = empty.any()
-    first_empty = torch.argmax(empty)
+    can_open = empty.any(-1, keepdim=True)
+    first_empty = torch.argmax(empty, dim=-1, keepdim=True)
     k = torch.arange(state.k_max, device=state.device)
-    return torch.where((k == first_empty) & can_open, torch.log(alpha), crp)
+    return torch.where((k == first_empty) & can_open, torch.log(alpha)[..., None], crp)
 
 
 def is_saturated(state: MixtureState):

@@ -158,8 +158,42 @@ def test_runner_rejects_unknown_kernels():
     defn, data, _ = _recovery_problem()
     s = st.initialize(defn, data, rng(0, "cpu").generator)
     with pytest.raises(ValueError, match="kernel name"):
-        runner(defn, data, s, [("split_merge", {})])  # a JAX kernel not ported yet
+        runner(defn, data, s, [("nuts_hp", {})])  # a JAX kernel not ported yet
     with pytest.raises(ValueError, match="kernel name"):
         runner(defn, data, s, ["assign_blocked_fusd"])
     with pytest.raises(TypeError):
         runner(defn, data, object(), ["assign_blocked"])
+
+
+@pytest.mark.parametrize("config", [[("assign_blocked_fused", {"fused_restat": False})],
+                                    [("assign_blocked_fused", {"k_tile": 24, "tile_n": 2048,
+                                                               "interpret": True})],
+                                    [("assign_blocked", {"m": 1})]])
+def test_runner_takes_the_jax_runners_blocked_keywords(config):
+    """The JAX runner's keywords for the blocked kernels run
+    (common_tpu/runner.py:41-50): assign_blocked drops its keywords,
+    assign_blocked_fused ignores the Pallas tiling knobs and honours
+    fused_restat."""
+    defn, data, _ = _recovery_problem()
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
+    run = runner(defn, data, s, config)
+    run.run(rng(1, "cpu").generator, 2)
+    out = run.get_latent()
+    assert int(out.counts.sum()) == defn.n and np.isfinite(run.score_trace).all()
+
+
+def test_fused_restat_false_rebuilds_through_restat(monkeypatch):
+    """fused_restat=False: the stats come from `blocked.restat` of the drawn
+    z, and the suffstat kernel's wrapper is not called."""
+    defn, data, _ = _recovery_problem()
+    s = st.initialize(defn, data, rng(0, "cpu").generator)
+    calls = []
+    real_restat = blocked.restat
+    monkeypatch.setattr(blocked, "restat", lambda *a, **k: calls.append(1) or real_restat(*a, **k))
+    monkeypatch.setattr(blocked, "fused_scatter_stats", lambda *a, **k: pytest.fail("kernel called"))
+    out = blocked.sweep_fused(s, data, rng(1, "cpu").generator, fused_restat=False)
+    assert calls == [1]
+    want = real_restat(out, data, out.assignments)
+    assert torch.equal(out.counts, want.counts)
+    for k, v in want.stats[0].items():
+        assert torch.equal(out.stats[0][k], v)

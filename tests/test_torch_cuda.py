@@ -219,3 +219,35 @@ def test_cuda_collapsed_sweep_never_waits_and_resumes_bit_exactly(cuda_device):
     assert torch.equal(trace["assignments"], torch.cat([t1["assignments"], t2["assignments"]]))
     assert torch.equal(trace["score"], torch.cat([t1["score"], t2["score"]]))
     assert torch.equal(straight.stats[0]["sum_xxT"], resumed.stats[0]["sum_xxT"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+def test_cuda_block_stats_match_stats_from_assignments(cuda_device, stacked):
+    """`blocked.block_stats` on the card (one launch of the scatter kernel for
+    all P assignments) against niw's plain `stats_from_assignments`, with
+    masked rows, rows outside the window (valid False) and ids outside
+    [0, K); P = 4 assignments of 3000 rows at D = 40, K = 7, or one."""
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.parallel import stack_states
+
+    r = np.random.default_rng(4)
+    n, d, k, p = 3000, 40, 7, 4
+    X = torch.tensor(r.normal(scale=2.0, size=(n, d)), dtype=torch.float32, device=cuda_device)
+    mask = torch.tensor(r.random(n) > 0.1, dtype=torch.float32, device=cuda_device)
+    valid = torch.arange(n, device=cuda_device) < n - 123
+    z = torch.tensor(r.integers(-1, k + 1, (p, n)), dtype=torch.int32, device=cuda_device)
+    defn = st.model_definition(n, [models.niw(d)], k_max=k)
+    one = st.initialize(defn, ((X, mask),), rng(0, cuda_device).generator)
+    state = stack_states([one] * p) if stacked else one
+    zz = z if stacked else z[0]
+    before = ss.fused_scatter_stats.launches
+    got = blocked.block_stats(state, ((X, mask),), zz, valid)[0]
+    assert ss.fused_scatter_stats.launches == before + 1
+    lik = one.likelihoods()[0]
+    for i in range(p if stacked else 1):
+        want = lik.stats_from_assignments(one.hypers[0], X, mask * valid, z[i], k)
+        for leaf, v in want.items():
+            g = got[leaf][i] if stacked else got[leaf]
+            assert (g - v).abs().max().item() <= 1e-5 * v.abs().max().item(), leaf

@@ -248,6 +248,53 @@ def test_zero_clear_kills_float_drift():
     assert float(ml[3]) == 0.0
 
 
+def test_entity_ops_and_the_row_step_take_a_stack():
+    """`remove_value_`, `add_value_` and `gibbs._row_sweep_step` on a stack
+    of three states (`parallel.stack_states`, as block-SMC's particles) give
+    each state's own result, float64: niw, nich (row 7 masked) and bnb,
+    whose tx reads its hyper r, different in each state. Row 5 is alone in
+    slot 4 of state 0 (its removal zero-clears the slot) and unassigned in
+    state 1 (its removal is a no-op there)."""
+    from common_tpu_torch.parallel import stack_states, unstack_state
+
+    r = np.random.default_rng(3)
+    X, y, w = r.normal(scale=2.0, size=(N, 2)), r.normal(size=N), r.integers(0, 6, N)
+    mask = np.ones(N)
+    mask[7] = 0.0
+    data = ((torch.from_numpy(X), torch.ones(N, dtype=torch.float64)),
+            (torch.from_numpy(y), torch.from_numpy(mask)), (torch.from_numpy(w), torch.ones(N)))
+    defn = st.model_definition(N, [models.niw(2), models.nich, models.bnb], k_max=K)
+    zs = [r.integers(0, 4, N).astype(np.int32) for _ in range(3)]
+    zs[0][5], zs[1][5] = 4, -1
+    states = [st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 0.5 + p},
+                            feature_hps=[NIW_HYPER, NICH_HYPER, {"alpha": 2.0, "beta": 3.0, "r": 1.0 + p}],
+                            assignment=z)
+              for p, z in enumerate(zs)]
+    stack = stack_states(states)
+
+    def same(got, want):
+        for p, s in enumerate(want):
+            g = unstack_state(got, p)
+            assert torch.equal(g.assignments, s.assignments) and torch.equal(g.counts, s.counts)
+            for gf, sf_ in zip(g.stats, s.stats):
+                for k in sf_:
+                    np.testing.assert_allclose(gf[k].numpy(), sf_[k].numpy(), err_msg=k, **F64)
+
+    removed = st.remove_value_(st.working_copy(stack), data, 5)
+    one = [st.remove_value(s, data, 5) for s in states]
+    same(removed, one)
+    assert all(torch.equal(v[0, 4], torch.zeros_like(v[0, 4])) for f in removed.stats for v in f.values())
+    gid = torch.tensor([1, 2, 4])
+    same(st.add_value_(st.working_copy(removed), data, 5, gid),
+         [st.add_value(s, data, 5, gid[p]) for p, s in enumerate(one)])
+    noise = torch.from_numpy(r.gumbel(size=(3, K)))
+    moved, slot = gibbs._row_sweep_step(data, 1, rng(1, "cpu").generator, st.working_copy(stack), 3, noise)
+    want = [gibbs._row_sweep_step(data, 1, rng(1, "cpu").generator, st.working_copy(s), 3, noise[p])
+            for p, s in enumerate(states)]
+    same(moved, [s for s, _ in want])
+    assert slot.tolist() == [int(g) for _, g in want]
+
+
 def test_score_value_matches_jax():
     """The predictive terms are float64 on both sides; the JAX package takes
     the CRP weights log n_k and log alpha in float32 (state.py:283), hence
@@ -434,4 +481,4 @@ def test_assign_fixed_refuses_a_crp_state_and_the_registry_is_complete():
 
     missing = set(JKERNELS) - set(KERNELS)
     # the remaining names belong to samplers the port has not reached yet
-    assert missing == {"nuts_hp", "nuts_cluster_hp", "nuts_theta", "split_merge"}
+    assert missing == {"nuts_hp", "nuts_cluster_hp", "nuts_theta"}

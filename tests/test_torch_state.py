@@ -88,6 +88,62 @@ def test_heldout_logp_matches_jax(monkeypatch):
     _close(got, want)
 
 
+@pytest.mark.parametrize("name", ["bb", "bnb", "gp", "nich", "dd", "dm", "bbnc", "niw", "bbv"])
+def test_heldout_logp_matches_jax_for_every_likelihood(name):
+    """30 rows at K_max=8, 5 held out: niw and bbv score through their
+    factored predictives, the other seven through the generic one on
+    `pred_logpdf` (common_tpu/state.py:445-475 scores every likelihood so)."""
+    from test_torch_likelihoods import CASES, _rows
+
+    desc, hyper = CASES[name][0], CASES[name][1]
+    jdesc = {"niw": jmodels.niw(2), "bbv": jmodels.bbv(4), "dd": jmodels.dd(3), "dm": jmodels.dm(3)}.get(
+        name, getattr(jmodels, name))
+    rows = _rows(name, 35, 11)
+    if rows.dtype.kind == "f":
+        rows = rows.astype(np.float32)
+    X, Xh = rows[:30], rows[30:]
+    z = np.random.default_rng(12).integers(0, 4, 30).astype(np.int32)
+    js = jst.initialize(jst.model_definition(30, [jdesc], k_max=8), ((jnp.asarray(X), jnp.ones(30)),),
+                        jax.random.key(0), cluster_hp={"alpha": 1.3}, feature_hps=[hyper],
+                        assignment=jnp.asarray(z))
+    want = jst.heldout_logp(js, ((jnp.asarray(Xh), jnp.ones(5)),))
+    s = convert.state_from_numpy(_leaves(js), device="cpu")
+    got = st.heldout_logp(s, ((torch.from_numpy(Xh), torch.ones(5)),))
+    assert got.shape == (5,) and desc.name == name
+    _close(got, want)
+
+
+@pytest.mark.parametrize("name", ["bb", "bnb", "gp", "nich", "bbnc", "dd", "dm"])
+def test_generic_predictive_scores_scalar_rows_in_one_call(name, monkeypatch):
+    """3000 rows through the generic `predictive_logpdf`, against one state
+    ([K] stats) and a stack of two ([2, K] stats, hypers [2, 1]): one
+    `pred_logpdf` call for the five scalar likelihoods, one a row for dd
+    and dm, and the values of scoring row by row."""
+    from test_torch_likelihoods import CASES, _rows, _stats
+
+    hyper = {k: np.asarray(v, np.float64) for k, v in CASES[name][1].items()}
+    lik = CASES[name][0].likelihood
+    X = torch.from_numpy(_rows(name, 3000, 4))
+    r = np.random.default_rng(6)
+    fit = _rows(name, 40, 5)
+    one = [{k: torch.from_numpy(v) for k, v in _stats(name, hyper, fit, np.ones(40),
+                                                    r.integers(0, 6, 40).astype(np.int32)).items()}
+           for _ in range(2)]
+    h = {k: torch.from_numpy(v) for k, v in hyper.items()}
+    stack = {k: torch.stack([one[0][k], one[1][k]]) for k in one[0]}
+    h2 = {k: torch.stack([v, v]).unsqueeze(1) for k, v in h.items()}
+    pred_logpdf = lik.pred_logpdf
+    calls = []
+    monkeypatch.setattr(lik, "pred_logpdf", lambda *a: calls.append(1) or pred_logpdf(*a))
+    for hh, s in ((h, one[0]), (h2, stack)):
+        calls.clear()
+        got = lik.predictive_logpdf(lik.predictive(hh, s), X)
+        assert got.shape == (3000, *s["n"].shape)
+        assert len(calls) == (3000 if name in ("dd", "dm") else 1)
+        want = torch.stack([pred_logpdf(hh, s, x) for x in X])
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("fixed", [False, True])
 def test_initialize_and_compute_stats_match_jax(fixed):
     js, _, data, hyper, chp, z = _problem(fixed)
