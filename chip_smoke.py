@@ -89,6 +89,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    proposal and 6 a split), counts, stats against a plain restat, exact
    zeros in empty slots; prints ms a move and what each proposed and
    whether it was accepted.
+9. BASELINE config 3 (run before phase 6): 100,000 rows + 2,048 held out
+   of 8 planted clusters over niw(16) + gp + bb columns (numpy seed 0,
+   `config3_rows`), K_max=32, alpha=1, the recipe's hypers and Exp(1)
+   priors (bench.py:903-1007); runner(..., [("assign_blocked", {}),
+   ("nuts_hp", {...}), ("nuts_cluster_hp", {...})], 2 transitions of depth
+   at most 5 each) once, then 10 iterations with the counts set to 0 just
+   before. Checks no kernel launched, finite scores, hypers in their
+   support, counts a bincount of z, stats against a plain restat, the
+   held-out logp/row above the one-cluster state's, and the NUTS hyper
+   target's gradient (fp32, card) within 1e-3 of float64 on the CPU;
+   prints iterations/s, each runner kernel's ms and share, the NUTS
+   transitions' leaves, depth, acceptance, divergences and host reads,
+   the idle share of a traced iteration, a transition against 31 leaves
+   issued with no read, and the cost of one read. Then SVI on the same
+   rows: `svi.init`, 30 CAVI steps (the ELBO never falls by more than 1e-5
+   of itself; the first 3 steps against float64 on the CPU from the same
+   posterior), 200 minibatch steps at batch 1024 (the ELBO above init's),
+   `to_state` and `predictive_logpdf` held-out densities; and nuts_theta
+   on a bbnc state over the binary column (p inside its bounds and within
+   6 sd of its Beta conditional).
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -147,6 +167,11 @@ ADD6, RESAMPLE6 = 64, 64  # phase 6's subsample annealing schedule
 P7, BLOCK7, WARMUP7, REJUV7 = 16, 8192, 128, 1
 SLACK7 = 1e-4  # logz may sit this share of |bound| below phase 3's best joint (fp32 sums over 123 blocks)
 MOVES8, SCANS8 = 4, 3  # phase 8's split-merge moves at 1M x 256
+# config 3 (bench.py:903-1007): niw(16) + gp + bb at 100k rows (+ 2048 held out), K_max=32
+N9, DG9, K9, HELD9, ITERS9 = 100_000, 16, 32, 2048, 10
+STEPS9, DEPTH9 = 2, 5  # the recipe's NUTS transitions a kernel call and tree depth
+CAVI9, CHECK9, SVI9, BATCH9 = 30, 3, 200, 1024  # CAVI steps (the first CHECK9 against f64), SVI steps, batch
+THETA9 = 3  # nuts_theta iterations on a bbnc state over phase 9's binary column
 # generator seeds of phase 6's CRP initial state and of its sweeps (see PERF.md:
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
@@ -953,11 +978,14 @@ def require_bookkeeping(s, data, what: str, K: int) -> dict:
     require(torch.equal(s.counts, st._assignment_counts(s.assignments, K)), f"{what}: counts are not a bincount of z")
     plain = blocked.restat(s, data, s.assignments)
     errs = {}
-    for leaf, b in plain.stats[0].items():
-        a = s.stats[0][leaf]
-        errs[leaf] = (a - b).abs().max().item()
-        require(errs[leaf] <= 1e-4 * b.abs().max().item(), f"{what}: {leaf} off the plain restat by {errs[leaf]:.3e}")
-        require(bool((a[s.counts == 0] == 0).all()), f"{what}: an empty slot's {leaf} is not exactly zero")
+    for f, stats_f in enumerate(plain.stats):
+        for leaf, b in stats_f.items():
+            a = s.stats[f][leaf]
+            name = leaf if len(plain.stats) == 1 else f"{f}.{leaf}"
+            errs[name] = (a - b).abs().max().item()
+            require(errs[name] <= 1e-4 * b.abs().max().item(),
+                    f"{what}: {name} off the plain restat by {errs[name]:.3e}")
+            require(bool((a[s.counts == 0] == 0).all()), f"{what}: an empty slot's {name} is not exactly zero")
     log(f"{what}: counts a bincount of z; max|stats - plain restat| "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (bar 1e-4 of the largest entry); empty slots 0")
     return errs
@@ -1325,6 +1353,316 @@ def phase_config2() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: BASELINE config 3 (NUTS on the hypers) and SVI
+# ---------------------------------------------------------------------------
+def config3_rows(seed: int = SEED):
+    """Config 3's rows, numpy seed `seed`: N9 + HELD9 rows of 8 planted
+    clusters (bench.py:918-930 with numpy draws): a niw(DG9) column around
+    centers at scale 4 with unit noise, a gp column with rates exp(N(0, 1)),
+    a bb column with p ~ Beta(0.5, 0.5). Float32 arrays (xg, xp, xb); the
+    last HELD9 rows are held out. `scripts/config3_reference.py` runs the
+    JAX package on the same rows."""
+    r = np.random.default_rng(seed)
+    nh = N9 + HELD9
+    z = r.integers(0, 8, nh)
+    centers = 4.0 * r.normal(size=(8, DG9))
+    xg = centers[z] + r.normal(size=(nh, DG9))
+    rates = np.exp(r.normal(size=8))
+    xp = r.poisson(rates[z])
+    pb = r.beta(0.5, 0.5, size=8)
+    xb = r.random(nh) < pb[z]
+    return xg.astype(np.float32), xp.astype(np.float32), xb.astype(np.float32)
+
+
+def config3_hypers():
+    """The recipe's hypers (bench.py:932-941): niw (0, 1, I, DG9 + 2), gp (1, 1), bb (1, 1)."""
+    return [{"mu0": np.zeros(DG9, np.float32), "kappa": 1.0,
+             "psi": np.eye(DG9, dtype=np.float32), "nu": float(DG9 + 2)},
+            {"alpha": 1.0, "inv_beta": 1.0}, {"alpha": 1.0, "beta": 1.0}]
+
+
+def _float64(tree):
+    """Numpy leaves (nested dicts and tuples) with every float array cast to
+    float64, for the CPU references."""
+    if isinstance(tree, dict):
+        return {k: _float64(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_float64(v) for v in tree)
+    if isinstance(tree, np.ndarray) and tree.dtype.kind == "f":
+        return tree.astype(np.float64)
+    return tree
+
+
+def phase_config3() -> dict:
+    """Config 3 through the runner ([assign_blocked, nuts_hp, nuts_cluster_hp],
+    bench.py:943-965), then SVI (CAVI and minibatch) on the same rows, and
+    nuts_theta on a bbnc state over the binary column. Runs none of the four
+    kernels, as the JAX recipe runs none of the Pallas kernels."""
+    import torch
+
+    from common_tpu_torch import convert, models, rng, scalar_functions as sf, state as st
+    from common_tpu_torch.kernels import hmc, svi
+    from common_tpu_torch.runner import KERNELS, runner
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cols = [torch.from_numpy(a).to(dev) for a in config3_rows()]
+    ones, ones_h = torch.ones(N9, device=dev), torch.ones(HELD9, device=dev)
+    data = tuple((c[:N9], ones) for c in cols)
+    held = tuple((c[N9:], ones_h) for c in cols)
+    defn = st.model_definition(N9, [models.niw(DG9), models.gp, models.bb], k_max=K9)
+    hps = config3_hypers()
+    gen = rng(SEED + 9, dev).generator
+    s0 = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=hps)
+    exp1 = sf.log_exponential(1.0)
+    priors = {1: lambda h: exp1(h["alpha"]) + exp1(h["inv_beta"]),
+              2: lambda h: exp1(h["alpha"]) + exp1(h["beta"])}
+    config = [("assign_blocked", {}),
+              ("nuts_hp", {"priors": priors, "num_steps": STEPS9, "max_depth": DEPTH9}),
+              ("nuts_cluster_hp", {"prior": exp1, "num_steps": STEPS9, "max_depth": DEPTH9})]
+    run = runner(defn, data, s0, config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.run(gen, 1)
+    torch.cuda.synchronize()
+    log(f"config 3 at {N9} x (niw{DG9}, gp, bb), K_max={K9}: set-up {t0 - t_phase:.2f} s, first "
+        f"iteration {time.perf_counter() - t0:.2f} s")
+
+    # the timed run; each NUTS transition's info is kept (the hyper target has 4
+    # coordinates, alpha's 1), read after the run
+    infos, nuts_step = [], hmc.nuts_step
+
+    def recorded(logprob, q, *a, **kw):
+        out = nuts_step(logprob, q, *a, **kw)
+        infos.append((q.shape[0], out[2]))
+        return out
+
+    hmc.nuts_step = recorded
+    try:
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run(gen, ITERS9)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        hmc.nuts_step = nuts_step
+    launched = _launches()
+    log(f"runner.run({ITERS9} x [assign_blocked, nuts_hp, nuts_cluster_hp]): {run_s:.3f} s, "
+        f"{ITERS9 / run_s:.3f} iterations/s; kernel launches {launched}")
+    require(not any(launched.values()), f"config 3 launched a hand-written kernel: {launched}")
+    nuts = {}
+    for kind, dim in (("nuts_hp", 4), ("nuts_cluster_hp", 1)):
+        got = [i for d, i in infos if d == dim]
+        require(len(got) == ITERS9 * STEPS9, f"{kind}: {len(got)} transitions for {ITERS9} x {STEPS9}")
+        nuts[kind] = {
+            "transitions": len(got),
+            "leaves": float(np.mean([i.num_leaves - 1 for i in got])),
+            "depth": float(np.mean([i.depth for i in got])),
+            "accept": float(torch.stack([i.accept_prob for i in got]).mean()),
+            "divergences": int(torch.stack([i.diverging for i in got]).sum()),
+            "reads": float(np.mean([i.reads for i in got])),
+        }
+        log(f"{kind} per transition: {nuts[kind]['leaves']:.2f} new leaves, depth {nuts[kind]['depth']:.2f}, "
+            f"acceptance {nuts[kind]['accept']:.3f}, {nuts[kind]['divergences']} divergences in "
+            f"{len(got)}, {nuts[kind]['reads']:.2f} booleans read")
+
+    s = run.get_latent()
+    scores = run.score_trace
+    log(f"score_joint trace: {scores.tolist()}")
+    log(f"k_active trace: {run.k_active_trace.tolist()}")
+    require(np.isfinite(scores).all(), "non-finite score_joint")
+    hyp = {"alpha": float(s.cluster_hp["alpha"]),
+           **{f"gp.{k}": float(v) for k, v in s.hypers[1].items()},
+           **{f"bb.{k}": float(v) for k, v in s.hypers[2].items()}}
+    log("hypers: " + ", ".join(f"{k} {v:.5f}" for k, v in hyp.items()))
+    require(all(np.isfinite(v) and v > 0 for v in hyp.values()), f"a hyper left its support: {hyp}")
+    require(int(s.counts.sum()) == N9, "counts do not sum to N")
+    require_bookkeeping(s, data, "config-3 state", K9)
+
+    lp_row = st.heldout_logp(s, held).mean().item()
+    one = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=hps,
+                        assignment=np.zeros(N9, np.int32))
+    lp_one = st.heldout_logp(one, held).mean().item()
+    log(f"held-out logp/row ({HELD9} rows): {lp_row:.5f}; one-cluster state {lp_one:.5f}; the JAX "
+        f"record -29.1028 (README.md:280) is a TPU run on other data: history, no bar")
+    require(np.isfinite(lp_row) and lp_row > lp_one, "held-out logp does not beat the one-cluster state")
+
+    # the hyper target's gradient: the card in fp32 against the CPU in float64
+    s64 = convert.state_from_numpy(_float64(convert.state_to_numpy(s)), device="cpu")
+    f32, q32, _, _ = hmc.hyper_logprob(s, priors)
+    f64, q64, _, _ = hmc.hyper_logprob(s64, priors)
+    v32, g32 = hmc.value_and_grad(f32)(q32)
+    v64, g64 = hmc.value_and_grad(f64)(q64)
+    gerr = (g32.double().cpu() - g64).abs().max().item() / g64.abs().max().item()
+    log(f"nuts_hp target at the final state: value {v32.item():.6e} (fp32, card) vs {v64.item():.6e} "
+        f"(float64, CPU); gradient {g64.tolist()}, max|g32 - g64| / max|g64| {gerr:.3e} (bar 1e-3)")
+    require(gerr <= 1e-3, f"the card's hyper gradient is {gerr:.3e} off the float64 one")
+
+    # each runner kernel's ms and share, over 3 iterations timed kernel by kernel
+    ms = {name: 0.0 for name, _ in config}
+    st_t = s
+    for _ in range(3):
+        for name, kw in config:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st_t = KERNELS[name](st_t, data, gen, **kw)
+            torch.cuda.synchronize()
+            ms[name] += 1e3 * (time.perf_counter() - t0) / 3
+    total = sum(ms.values())
+    log("one iteration by kernel: " + ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in ms.items()))
+
+    def iteration():
+        st_i = s
+        for name, kw in config:
+            st_i = KERNELS[name](st_i, data, gen, **kw)
+
+    idle, _ = profile_sweep(iteration)
+
+    # the reads: one NUTS transition on the hyper target as shipped, against
+    # 2^DEPTH9 - 1 leaves issued back to back with no read (what running every
+    # leaf masked would cost at least)
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = reads = 0
+    for _ in range(reps):
+        _, _, info = hmc.nuts_step(f32, q32, gen, 0.05, None, DEPTH9)
+        leaves += info.num_leaves - 1
+        reads += info.reads
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / reps
+    vg = hmc.value_and_grad(f32)
+    g0 = vg(q32)[1]
+    unit = torch.ones_like(q32)
+
+    def all_leaves():
+        q, p, g = q32, torch.zeros_like(q32), g0
+        for _ in range(2 ** DEPTH9 - 1):
+            q, p, _, g = hmc._leaf(vg, q, p, g, 0.05, unit)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_leaves()
+    torch.cuda.synchronize()
+    masked_ms = 1e3 * (time.perf_counter() - t0)
+    leaf_ms = masked_ms / (2 ** DEPTH9 - 1)
+    log(f"nuts_hp transition as shipped: {step_ms:.2f} ms, {leaves / reps:.2f} new leaves and "
+        f"{reads / reps:.2f} reads; {2 ** DEPTH9 - 1} leaves back to back with no read {masked_ms:.2f} ms "
+        f"({leaf_ms:.3f} ms a leaf): the masked variant costs at least that a transition")
+
+    # what one read of a device value costs the host, beside a launch alone
+    one = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        one = one + 1.0
+    torch.cuda.synchronize()
+    launch_ms = 1e3 * (time.perf_counter() - t0) / 200
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(one + 1.0 > 0)
+    read_ms = 1e3 * (time.perf_counter() - t0) / 200
+    log(f"one launch issued: {launch_ms:.4f} ms; one launch and a read of its result: {read_ms:.4f} ms")
+
+    # SVI on the same rows: init, CAVI (the first CHECK9 steps against float64 on the CPU), minibatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = svi.init(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=hps)
+    elbo0 = svi.elbo(post, data)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cavi, elbos = svi.fit_cavi(post, data, CAVI9)
+    torch.cuda.synchronize()
+    cavi_s = time.perf_counter() - t0
+    trace = torch.cat([elbo0[None], elbos]).double().cpu().numpy()
+    drop = float(np.min(np.diff(trace) / np.abs(trace[1:])))
+    log(f"svi.init {init_s:.2f} s (ELBO {trace[0]:.6e}); fit_cavi({CAVI9}) {cavi_s:.2f} s, "
+        f"{CAVI9 / cavi_s:.2f} iterations/s; ELBO {trace[1]:.6e} -> {trace[-1]:.6e}; smallest step "
+        f"{drop:.3e} of |ELBO| (bar >= -1e-5)")
+    require(np.isfinite(trace).all() and drop >= -1e-5, f"the CAVI ELBO fell by {-drop:.3e} of |ELBO|")
+
+    t0 = time.perf_counter()
+    post64 = convert.svi_from_numpy(_float64(convert.svi_to_numpy(post)), device="cpu")
+    data64 = tuple((x.double().cpu(), m.double().cpu()) for x, m in data)
+    cpu_post, _ = svi.fit_cavi(post64, data64, CHECK9)
+    card_post, _ = svi.fit_cavi(post, data, CHECK9)
+    # rtol 1e-3, with an atol of 1e-4 of each leaf's largest entry: each fp32
+    # E-step moves r by a few 1e-6 of itself (its scores are tens of nats at
+    # fp32 rounding), which moves a weighted sum by that share of the leaf's
+    # size, and three steps compound it
+    verr, worst = 0.0, ""
+    for f, (a_f, b_f) in enumerate(zip(card_post.vstats, cpu_post.vstats)):
+        for leaf, b in b_f.items():
+            a = a_f[leaf].double().cpu()
+            err = ((a - b).abs() - 1e-3 * b.abs()).max().item() / b.abs().max().item()
+            rel = ((a - b).abs() / b.abs().clamp(min=1e-3 * b.abs().max().item())).max().item()
+            if err >= verr:
+                verr, worst = err, f"{f}.{leaf} (max |a - b| / max(|b|, 1e-3 max|b|) {rel:.3e})"
+    log(f"first {CHECK9} CAVI steps, card fp32 vs CPU float64 from one posterior "
+        f"({time.perf_counter() - t0:.2f} s): max over vstats of (|a - b| - 1e-3 |b|) / max|b| "
+        f"{verr:.3e} at {worst} (bar <= 1e-4)")
+    require(verr <= 1e-4, "the card's CAVI steps are off the float64 ones")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, _ = svi.fit_svi(post, data, gen, SVI9, BATCH9)
+    torch.cuda.synchronize()
+    svi_s = time.perf_counter() - t0
+    elbo_svi = svi.elbo(fitted, data).item()
+    log(f"fit_svi({SVI9} steps, batch {BATCH9}): {svi_s:.2f} s, {SVI9 / svi_s:.1f} steps/s; ELBO "
+        f"{trace[0]:.6e} at init -> {elbo_svi:.6e}")
+    require(np.isfinite(elbo_svi) and elbo_svi > trace[0], "SVI did not raise the ELBO above init's")
+    hard = svi.to_state(fitted, data)
+    lp_svi = st.heldout_logp(hard, held).mean().item()
+    t0 = time.perf_counter()
+    lp_pred = torch.stack([svi.predictive_logpdf(fitted, tuple((x[i], m[i]) for x, m in held))
+                           for i in range(HELD9)]).mean().item()
+    log(f"SVI held-out logp/row: {lp_svi:.5f} (to_state, heldout_logp), {lp_pred:.5f} "
+        f"(predictive_logpdf, {time.perf_counter() - t0:.2f} s); k_active of to_state "
+        f"{int((hard.counts > 0).sum())}")
+    require(np.isfinite(lp_svi) and np.isfinite(lp_pred), "SVI's held-out logp is not finite")
+
+    # nuts_theta on a bbnc state over the binary column, seated by config 3's
+    # z, from one exact draw of p (gibbs.theta): at thousands of rows a slot,
+    # p's posterior sd in logit space is about 0.01-0.2, so the step is 0.005
+    # (the kernel's default 0.1 diverges on the first leaf from p = 0.5)
+    bdefn, bdata = st.model_definition(N9, [models.bbnc], k_max=K9), (data[2],)
+    sb = st.initialize(bdefn, bdata, gen, cluster_hp={"alpha": 1.0}, assignment=s.assignments)
+    sb = KERNELS["theta"](sb, bdata, gen)
+    trun = runner(bdefn, bdata, sb, [("nuts_theta", {"step_size": 0.005, "num_steps": STEPS9,
+                                                     "max_depth": DEPTH9})])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trun.run(gen, THETA9)
+    torch.cuda.synchronize()
+    theta_s = time.perf_counter() - t0
+    out_b = trun.get_latent()
+    p, active = out_b.stats[0]["p"], out_b.counts > 0
+    lo, hi = models.bbnc.likelihood.latent_bounds["p"]
+    a_post = 1.0 + out_b.stats[0]["heads"]
+    b_post = 1.0 + out_b.stats[0]["n"] - out_b.stats[0]["heads"]
+    sd = torch.sqrt(a_post * b_post / ((a_post + b_post) ** 2 * (a_post + b_post + 1.0)))
+    z_theta = ((p - a_post / (a_post + b_post)) / sd)[active]
+    moved = int((p != sb.stats[0]["p"])[active].sum())
+    log(f"nuts_theta x {THETA9} (step 0.005) on a bbnc state, {int(active.sum())} active slots: "
+        f"{theta_s:.2f} s; {moved} slots moved off the exact draw; p within "
+        f"{z_theta.abs().max().item():.2f} sd of its Beta conditional's mean (bar 6)")
+    require(bool(torch.isfinite(p).all()) and bool(((p >= lo) & (p <= hi)).all()), "bbnc's p left its bounds")
+    require(moved > 0 and z_theta.abs().max().item() <= 6.0, "nuts_theta did not sample bbnc's p")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 9 wall time {phase_s:.1f} s")
+    return {"iterations_per_s": ITERS9 / run_s, "run_s": run_s, "kernel_ms": ms, "idle_share": idle,
+            "nuts": nuts, "hypers": hyp, "heldout_logp_per_row": lp_row, "one_cluster_logp_per_row": lp_one,
+            "hyper_grad_rel_err": gerr, "nuts_step_ms": step_ms, "masked_leaves_ms": masked_ms,
+            "leaf_ms": leaf_ms, "launch_ms": launch_ms, "read_ms": read_ms, "cavi_iterations_per_s": CAVI9 / cavi_s, "cavi_elbo": trace.tolist(),
+            "cavi_f64_err": verr, "svi_steps_per_s": SVI9 / svi_s, "svi_elbo": elbo_svi,
+            "svi_heldout_logp_per_row": lp_svi, "svi_predictive_logp_per_row": lp_pred,
+            "theta_s": theta_s, "theta_moved": moved, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: BASELINE config 1 by collapsed Gibbs
 # ---------------------------------------------------------------------------
 def phase_collapsed() -> dict:
@@ -1487,12 +1825,13 @@ def main() -> int:
         sm_out = phase_splitmerge(headline)
         del headline
         config2 = phase_config2()
+        config3 = phase_config3()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
-    log(json.dumps({"main_path": result, "chains": chains, "config2": config2,
+    log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
                     "collapsed": collapsed, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])

@@ -10,9 +10,11 @@ CUDA C++ for Hopper (`csrc/`, built with nvcc at first use).
 Module map (each keeps its counterpart's name in `common_tpu`):
   - validator.py, runtime_types.py, rng.py, models.py, state.py, runner.py,
     scalar_functions.py
-  - likelihoods/  base, niw, bbv
+  - likelihoods/  base, the conjugate zoo and bbnc, expfam (SVI's expectations)
   - ops/          the CUDA kernels' wrappers and their plain versions
-  - kernels/      blocked.py (sweep, sweep_fused, sweep_chains), slice_.py (hp)
+  - kernels/      blocked.py (sweep, sweep_fused, sweep_chains), slice_.py (hp),
+                  hmc.py (NUTS: hp, cluster_hp, theta), svi.py (CAVI, SVI),
+                  gibbs.py, smc.py, splitmerge.py, annealing.py
   - parallel/     chains.py (stack_states, unstack_state, vmap_sweep)
   - utils/        diagnostics.py (ess, split_rhat, summarize_traces)
   - convert.py    (new) state to and from numpy leaves

@@ -8,16 +8,23 @@ The leaves are a dict with the fields of `MixtureState` in both packages:
 
 A JAX state gives them with `np.asarray` on each of its arrays. Both
 directions keep every array's dtype and values unchanged, so both packages
-can score the same state.
+can score the same state. A variational posterior (`kernels.svi.SVIPosterior`)
+is carried the same way, with the fields of `SVIPosterior`:
+
+    {"stick_a": [K-1], "stick_b": [K-1], "dir_conc": [K],
+     "vstats": ({name: array}, ...), "hypers": ({name: array}, ...),
+     "cluster_hp": {name: array}, "lik_names": (str, ...), "fixed": bool}
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from common_tpu_torch.kernels.svi import SVIPosterior
 from common_tpu_torch.state import MixtureState
 
 
@@ -25,38 +32,50 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _tensors(v, device):
+    """Numpy leaves (nested dicts and tuples) as tensors on `device`; names
+    and flags (str, bool) stay as they are."""
+    if isinstance(v, dict):
+        return {k: _tensors(x, device) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return tuple(_tensors(x, device) for x in v)
+    return v if isinstance(v, (str, bool)) else _to_tensor(v, device)
+
+
+def _arrays(v):
+    """The inverse of `_tensors`: tensors as numpy arrays."""
+    if isinstance(v, dict):
+        return {k: _arrays(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return tuple(_arrays(x) for x in v)
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else v
+
+
+def _from_numpy(cls, leaves: Dict[str, Any], device):
+    fields = {f.name: _tensors(leaves[f.name], device) for f in dataclasses.fields(cls)}
+    return cls(**{**fields, "fixed": bool(leaves["fixed"])})
+
+
+def _to_numpy(obj) -> Dict[str, Any]:
+    return {f.name: _arrays(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
 
 
 def state_from_numpy(leaves: Dict[str, Any], device="cuda") -> MixtureState:
     """The port's state from numpy leaves, with its tensors on `device` (the
     card unless the caller names another; without a card the default raises)."""
-    def tensors(d):
-        return {k: _to_tensor(v, device) for k, v in d.items()}
-
-    return MixtureState(
-        assignments=_to_tensor(leaves["assignments"], device),
-        counts=_to_tensor(leaves["counts"], device),
-        cluster_hp=tensors(leaves["cluster_hp"]),
-        stats=tuple(tensors(s) for s in leaves["stats"]),
-        hypers=tuple(tensors(h) for h in leaves["hypers"]),
-        lik_names=tuple(leaves["lik_names"]),
-        fixed=bool(leaves["fixed"]),
-    )
+    return _from_numpy(MixtureState, leaves, device)
 
 
 def state_to_numpy(state: MixtureState) -> Dict[str, Any]:
     """The numpy leaves of a port state (the inverse of `state_from_numpy`)."""
-    def arrays(d):
-        return {k: _to_numpy(v) for k, v in d.items()}
+    return _to_numpy(state)
 
-    return {
-        "assignments": _to_numpy(state.assignments),
-        "counts": _to_numpy(state.counts),
-        "cluster_hp": arrays(state.cluster_hp),
-        "stats": tuple(arrays(s) for s in state.stats),
-        "hypers": tuple(arrays(h) for h in state.hypers),
-        "lik_names": tuple(state.lik_names),
-        "fixed": bool(state.fixed),
-    }
+
+def svi_from_numpy(leaves: Dict[str, Any], device="cuda") -> SVIPosterior:
+    """The port's variational posterior from numpy leaves, on `device`."""
+    return _from_numpy(SVIPosterior, leaves, device)
+
+
+def svi_to_numpy(post: SVIPosterior) -> Dict[str, Any]:
+    """The numpy leaves of a port posterior (the inverse of `svi_from_numpy`)."""
+    return _to_numpy(post)

@@ -12,6 +12,10 @@ dicts whose leaves carry a leading cluster axis ``[K, ...]``:
     ``logpdf_batch``         and of posterior draws
   - stats fold               ``stats + sign * tx`` into one cluster slot: the
                              collapsed sampler's add_value / remove_value
+  - expfam methods           ``nat_params``, ``log_partition``,
+                             ``suffstat_pair``, ``log_h``,
+                             ``stats_from_weights``: the SVI path
+                             (`likelihoods/expfam.py`, `kernels/svi.py`)
 
 Conventions: ``stats`` is a dict of tensors with its own ``n`` leaf (rows
 observed for this feature; masked cells do not count); ``hyper`` is a dict
@@ -218,6 +222,51 @@ class Likelihood:
     def prior_logpdf(self, hyper, theta):
         """log p(theta | hyper), for the non-conjugate kernels."""
         raise NotImplementedError
+
+    # --- conjugate exponential-family structure (the SVI path) ----------
+    # Where has_expfam is True the conjugate prior is an exponential family
+    # over theta, p(theta | hyper) = exp(eta . T(theta) - A(eta)) h0(theta),
+    # and log p(x | theta) = t(x) . T(theta) + log h(x), t(x) aligned leaf by
+    # leaf with T. E_q[T] = grad A, so everything SVI needs follows from
+    # autodiff of A (`likelihoods/expfam.py`). Every method broadcasts over
+    # leading batch axes: rows [N] on the data side, clusters [K] on the
+    # hyper side, so that E_q[T] of all K clusters is one gradient of sum_k A.
+    has_expfam: bool = False
+
+    def nat_params(self, hyper) -> Stats:
+        """Natural parameters eta of the conjugate prior, a dict of tensors."""
+        raise NotImplementedError
+
+    def log_partition(self, nat):
+        """A(eta), the conjugate prior's log-normalizer; differentiable,
+        one value per entry of the leading batch axes."""
+        raise NotImplementedError
+
+    def suffstat_pair(self, hyper, x, mask) -> Stats:
+        """t(x) * mask, aligned leaf by leaf with `nat_params`.
+
+        `hyper` gives shapes only (dd's category count) and the float type.
+        """
+        raise NotImplementedError
+
+    def log_h(self, hyper, x, mask):
+        """log base measure of the likelihood at x, times the mask."""
+        raise NotImplementedError
+
+    def stats_from_weights(self, hyper, X, mask, r) -> Stats:
+        """Soft-weighted suffstats [K, ...] = sum_n r[n, k] tx(x_n): the SVI
+        M-step's `stats_from_assignments`.
+
+        Default: `tx` of all rows at once, then one product per leaf,
+        r^T [K, N] @ tx [N, S]. NIW overrides it, since its per-row
+        suffstat is an outer product.
+        """
+        txs = self.tx(hyper, X, mask)
+        out = {}
+        for k, t in txs.items():
+            flat = t.reshape(t.shape[0], -1)
+            out[k] = (r.to(flat.dtype).T @ flat).reshape(r.shape[1], *t.shape[1:])
+        return out
 
     def refresh_latents(self, generator: torch.Generator, hyper, stats, refresh_mask):
         """Redraw any explicit latents inside `stats` where refresh_mask is set.

@@ -41,6 +41,24 @@ class BB(base.Likelihood):
             "beta": hyper["beta"] + stats["n"] - stats["heads"],
         }
 
+    # conjugate exponential family: T(p) = (log p, log(1 - p))
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        return {"a": hyper["alpha"] - 1.0, "b": hyper["beta"] - 1.0}
+
+    def log_partition(self, nat):
+        return betaln(nat["a"] + 1.0, nat["b"] + 1.0)
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["alpha"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)
+        xf = x.to(dt)
+        return {"a": m * xf, "b": m * (1.0 - xf)}
+
+    def log_h(self, hyper, x, mask):
+        return torch.zeros(x.shape, dtype=hyper["alpha"].dtype, device=x.device)
+
     def marginal_loglik(self, hyper, stats):
         a, b = hyper["alpha"], hyper["beta"]
         h, t = stats["heads"], stats["n"] - stats["heads"]

@@ -93,7 +93,7 @@ class BBV(base.Likelihood):
     def tx(self, hyper, x, mask):
         dt = hyper["alpha"].dtype
         m = torch.as_tensor(mask, device=x.device).to(dt)
-        return {"n": m, "heads": m * x.to(dt)}
+        return {"n": m, "heads": m[..., None] * x.to(dt)}
 
     def stats_from_assignments(self, hyper, X, mask, gid, K):
         """n and heads of each cluster, by one one-hot product; rows with gid
@@ -108,6 +108,24 @@ class BBV(base.Likelihood):
             "alpha": hyper["alpha"] + stats["heads"],
             "beta": hyper["beta"] + stats["n"][..., None] - stats["heads"],
         }
+
+    # conjugate exponential family: T(p) = (log p, log(1 - p)), column by column
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        return {"a": hyper["alpha"] - 1.0, "b": hyper["beta"] - 1.0}
+
+    def log_partition(self, nat):
+        return betaln(nat["a"] + 1.0, nat["b"] + 1.0).sum(-1)
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["alpha"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)[..., None]
+        xf = x.to(dt)
+        return {"a": m * xf, "b": m * (1.0 - xf)}
+
+    def log_h(self, hyper, x, mask):
+        return torch.zeros(x.shape[:-1], dtype=hyper["alpha"].dtype, device=x.device)
 
     def marginal_loglik(self, hyper, stats):
         a, b = hyper["alpha"], hyper["beta"]

@@ -61,6 +61,24 @@ class DD(base.Likelihood):
     def posterior_hyper(self, hyper, stats):
         return {"alphas": hyper["alphas"] + stats["counts"]}
 
+    # conjugate exponential family: T(pi) = log pi
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        return {"e": hyper["alphas"] - 1.0}
+
+    def log_partition(self, nat):
+        a = nat["e"] + 1.0
+        return torch.lgamma(a).sum(-1) - torch.lgamma(a.sum(-1))
+
+    def suffstat_pair(self, hyper, x, mask):
+        a = hyper["alphas"]
+        m = torch.as_tensor(mask, device=x.device).to(a.dtype)
+        return {"e": m[..., None] * _onehot(x, a.shape[-1], a.dtype)}
+
+    def log_h(self, hyper, x, mask):
+        return torch.zeros(x.shape, dtype=hyper["alphas"].dtype, device=x.device)
+
     def marginal_loglik(self, hyper, stats):
         a = hyper["alphas"]
         a0 = a.sum(-1)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from common_tpu_torch.likelihoods import base
-from common_tpu_torch.likelihoods.dd import dirichlet_log
+from common_tpu_torch.likelihoods.dd import DD, dirichlet_log
 from common_tpu_torch.rng import gumbel_argmax
 
 
@@ -43,6 +43,21 @@ class DM(base.Likelihood):
 
     def posterior_hyper(self, hyper, stats):
         return {"alphas": hyper["alphas"] + stats["counts"]}
+
+    # conjugate exponential family: T(pi) = log pi, dd's family
+    has_expfam = True
+    nat_params = DD.nat_params
+    log_partition = DD.log_partition
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["alphas"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)
+        return {"e": m[..., None] * x.to(dt)}
+
+    def log_h(self, hyper, x, mask):
+        dt = hyper["alphas"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)
+        return m * _log_multinomial_coef(x.to(dt))
 
     def marginal_loglik(self, hyper, stats):
         a = hyper["alphas"]

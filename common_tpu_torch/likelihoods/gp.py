@@ -41,6 +41,26 @@ class GP(base.Likelihood):
             "inv_beta": hyper["inv_beta"] + stats["n"],
         }
 
+    # conjugate exponential family: T(lam) = (log lam, -lam)
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        return {"e1": hyper["alpha"] - 1.0, "e2": hyper["inv_beta"]}
+
+    def log_partition(self, nat):
+        shape = nat["e1"] + 1.0
+        return torch.lgamma(shape) - shape * torch.log(nat["e2"])
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["alpha"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt).expand(x.shape)
+        return {"e1": m * x.to(dt), "e2": m}
+
+    def log_h(self, hyper, x, mask):
+        dt = hyper["alpha"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt)
+        return -m * torch.lgamma(x.to(dt) + 1.0)
+
     def marginal_loglik(self, hyper, stats):
         a, b = hyper["alpha"], hyper["inv_beta"]
         a_n = a + stats["sum_x"]

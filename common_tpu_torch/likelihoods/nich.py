@@ -64,6 +64,40 @@ class NICH(base.Likelihood):
         sigmasq_n = (nu * sigmasq + extra) / nu_n
         return {"mu": mu_n, "kappa": kappa_n, "sigmasq": sigmasq_n, "nu": nu_n}
 
+    # conjugate exponential family over (mu, sigmasq):
+    # T = (mu / s2, -1 / (2 s2), -mu^2 / (2 s2), -1/2 log s2),
+    # eta = (kappa mu0, nu sigmasq0 + kappa mu0^2, kappa, nu + 3).
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        mu0, kappa = hyper["mu"], hyper["kappa"]
+        return {
+            "e1": kappa * mu0,
+            "e2": hyper["nu"] * hyper["sigmasq"] + kappa * mu0 * mu0,
+            "e3": kappa,
+            "e4": hyper["nu"] + 3.0,
+        }
+
+    def log_partition(self, nat):
+        kappa = nat["e3"]
+        nu = nat["e4"] - 3.0
+        nu_s0 = nat["e2"] - nat["e1"] * nat["e1"] / kappa
+        return (
+            0.5 * (math.log(2.0 * math.pi) - torch.log(kappa))
+            + torch.lgamma(nu / 2.0)
+            + 0.5 * nu * (math.log(2.0) - torch.log(nu_s0))
+        )
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["mu"].dtype
+        m = torch.as_tensor(mask, device=x.device).to(dt).expand(x.shape)
+        xf = x.to(dt)
+        return {"e1": m * xf, "e2": m * xf * xf, "e3": m, "e4": m}
+
+    def log_h(self, hyper, x, mask):
+        m = torch.as_tensor(mask, device=x.device).to(hyper["mu"].dtype)
+        return -0.5 * math.log(2.0 * math.pi) * m
+
     def marginal_loglik(self, hyper, stats):
         post = self.posterior_hyper(hyper, stats)
         return (

@@ -26,7 +26,7 @@ import torch
 
 from common_tpu_torch.likelihoods import base
 from common_tpu_torch.ops.gaussian_assign import gaussian_scores
-from common_tpu_torch.ops.suffstat import scatter_stats_plain
+from common_tpu_torch.ops.suffstat import scatter_stats_plain, weighted_stats_plain
 from common_tpu_torch.rng import standard_gamma
 
 
@@ -103,6 +103,57 @@ class NIW(base.Likelihood):
         sum_x = onehot.T @ X
         sum_xxT = scatter_stats_plain(X, torch.where(w > 0, gid, K), K)
         return {"n": n, "sum_x": sum_x, "sum_xxT": sum_xxT}
+
+    def stats_from_weights(self, hyper, X, mask, r):
+        """Soft-weighted suffstats (the SVI M-step), in plain tensor ops.
+
+        sum_xxT[k] = X^T diag(r_k * mask) X, one product per cluster
+        (`ops.suffstat.weighted_stats_plain`); never builds [N, D, D] or
+        [N, K, D].
+        """
+        dt = hyper["mu0"].dtype
+        X = X.to(dt)
+        w = r.to(dt) * mask.to(dt)[:, None]  # [N, K]
+        return {"n": w.sum(0), "sum_x": w.T @ X, "sum_xxT": weighted_stats_plain(X, w)}
+
+    # -- conjugate exponential family over (mu, Sigma) ---------------------
+    # T(theta) = (Lam mu, -1/2 Lam, -1/2 mu' Lam mu, -1/2 log|Sigma|),
+    # eta = (kappa mu0, psi + kappa mu0 mu0', kappa, nu + d + 2).
+    # Each broadcasts over a leading cluster axis: kappa [K] lifts to the
+    # rank of mu0 [K, D] and psi [K, D, D].
+    has_expfam = True
+
+    def nat_params(self, hyper):
+        mu0, kappa = hyper["mu0"], hyper["kappa"]
+        return {
+            "e1": kappa[..., None] * mu0,
+            "e2": hyper["psi"] + kappa[..., None, None] * _outer(mu0, mu0),
+            "e3": kappa,
+            "e4": hyper["nu"] + mu0.shape[-1] + 2.0,
+        }
+
+    def log_partition(self, nat):
+        d = nat["e1"].shape[-1]
+        kappa = nat["e3"]
+        nu = nat["e4"] - d - 2.0
+        psi = nat["e2"] - _outer(nat["e1"], nat["e1"]) / kappa[..., None, None]
+        return (
+            0.5 * d * (math.log(2.0 * math.pi) - torch.log(kappa))
+            + 0.5 * nu * d * math.log(2.0)
+            - 0.5 * nu * torch.linalg.slogdet(psi)[1]
+            + multigammaln(nu / 2.0, d)
+        )
+
+    def suffstat_pair(self, hyper, x, mask):
+        dt = hyper["mu0"].dtype
+        x = x.to(dt)
+        m = torch.as_tensor(mask, device=x.device).to(dt).expand(x.shape[:-1])
+        return {"e1": m[..., None] * x, "e2": m[..., None, None] * _outer(x, x), "e3": m, "e4": m}
+
+    def log_h(self, hyper, x, mask):
+        d = hyper["mu0"].shape[-1]
+        m = torch.as_tensor(mask, device=x.device).to(hyper["mu0"].dtype)
+        return -0.5 * d * math.log(2.0 * math.pi) * m
 
     # -- posterior NIW parameters from suffstats (broadcasts over batch) --
     def posterior_hyper(self, hyper, stats):

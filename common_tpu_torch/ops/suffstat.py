@@ -36,11 +36,16 @@ ROWS_PER_CHUNK = 8192
 SCRATCH_FLOATS = 1 << 26
 
 
+def weighted_stats_plain(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[K, D, D] sum_n w[n, k] x_n x_n^T: one weighted X^T X per cluster,
+    so no [N, D, D] or [N, K, D] tensor is made."""
+    return torch.stack([(X * w[:, k, None]).T @ X for k in range(w.shape[1])])
+
+
 def scatter_stats_plain(X: torch.Tensor, z: torch.Tensor, K: int) -> torch.Tensor:
     """Plain version: one one-hot-weighted X^T X per cluster, [K, D, D]."""
     ks = torch.arange(K, device=z.device)
-    onehot = (z.reshape(-1, 1) == ks).to(X.dtype)  # [N, K]
-    return torch.stack([(X * onehot[:, k, None]).T @ X for k in range(K)])
+    return weighted_stats_plain(X, (z.reshape(-1, 1) == ks).to(X.dtype))
 
 
 def _check(X: torch.Tensor, z: torch.Tensor, K: int) -> None:

@@ -12,7 +12,8 @@ The JAX package runs the loop as one `lax.scan`; here it is a Python loop.
 The per-sweep traces (joint score, active-cluster count, counts and,
 optionally, assignments) stay on the device until the end of `run`, so the
 loop itself never waits on the device between sweeps (the slice sampler
-does, inside `slice_hp` and `slice_theta`: see `kernels/slice_.py`).
+does, inside `slice_hp` and `slice_theta`: see `kernels/slice_.py`; so do
+the NUTS kernels, one boolean a leaf and a doubling: see `kernels/hmc.py`).
 `jsonl_path` adds one JSON line per sweep, written at the end of each `run`.
 """
 
@@ -27,7 +28,7 @@ import torch
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
-from common_tpu_torch.kernels import blocked, gibbs, slice_, splitmerge
+from common_tpu_torch.kernels import blocked, gibbs, hmc, slice_, splitmerge
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.utils import diagnostics
 
@@ -77,6 +78,18 @@ def _k_slice_theta(state, data, generator, **kw):
     return slice_.theta(state, generator, **kw)
 
 
+def _k_nuts_hp(state, data, generator, **kw):
+    return hmc.hp(state, data, generator, **kw)
+
+
+def _k_nuts_cluster_hp(state, data, generator, prior, **kw):
+    return hmc.cluster_hp(state, generator, prior, **kw)
+
+
+def _k_nuts_theta(state, data, generator, **kw):
+    return hmc.theta(state, generator, **kw)
+
+
 # kernel name -> fn(state, data, generator, **kw) -> state
 KERNELS: Dict[str, Callable] = {
     "assign": _k_assign,
@@ -90,6 +103,9 @@ KERNELS: Dict[str, Callable] = {
     "theta": _k_theta,
     "slice_theta": _k_slice_theta,  # kw: w
     "slice_hp": slice_.hp,  # kw: specs, cluster
+    "nuts_hp": _k_nuts_hp,  # kw: priors, transforms, step_size, num_steps, max_depth
+    "nuts_cluster_hp": _k_nuts_cluster_hp,  # kw: prior, step_size, num_steps, max_depth
+    "nuts_theta": _k_nuts_theta,  # kw: step_size, num_steps, max_depth
     "split_merge": splitmerge.moves,  # kw: n_moves, t_scans
 }
 

@@ -158,7 +158,7 @@ def test_runner_rejects_unknown_kernels():
     defn, data, _ = _recovery_problem()
     s = st.initialize(defn, data, rng(0, "cpu").generator)
     with pytest.raises(ValueError, match="kernel name"):
-        runner(defn, data, s, [("nuts_hp", {})])  # a JAX kernel not ported yet
+        runner(defn, data, s, [("nuts_hpp", {})])  # a kernel of neither runner
     with pytest.raises(ValueError, match="kernel name"):
         runner(defn, data, s, ["assign_blocked_fusd"])
     with pytest.raises(TypeError):

@@ -251,3 +251,100 @@ def test_cuda_block_stats_match_stats_from_assignments(cuda_device, stacked):
         for leaf, v in want.items():
             g = got[leaf][i] if stacked else got[leaf]
             assert (g - v).abs().max().item() <= 1e-5 * v.abs().max().item(), leaf
+
+
+def _config3_state(device, n=4000, d=16, k=32, dtype=torch.float32):
+    """A niw(d) + gp + bb state of config 3's shape at n rows, on `device`."""
+    from common_tpu_torch import models, rng, state as st
+
+    r = np.random.default_rng(9)
+    z = r.integers(0, 8, n)
+    cols = [4.0 * r.normal(size=(8, d))[z] + r.normal(size=(n, d)),
+            r.poisson(np.exp(r.normal(size=8))[z]), r.random(n) < r.beta(0.5, 0.5, 8)[z]]
+    data = tuple((torch.tensor(c, dtype=dtype, device=device), torch.ones(n, dtype=dtype, device=device))
+                 for c in cols)
+    defn = st.model_definition(n, [models.niw(d), models.gp, models.bb], k_max=k)
+    hps = [{"mu0": np.zeros(d), "kappa": 1.0, "psi": np.eye(d), "nu": d + 2.0},
+           {"alpha": 1.3, "inv_beta": 0.7}, {"alpha": 0.8, "beta": 1.2}]
+    s = st.initialize(defn, data, rng(3, device).generator, cluster_hp={"alpha": 1.0}, feature_hps=hps,
+                      assignment=r.integers(0, k - 4, n).astype(np.int32))
+    return defn, data, hps, s
+
+
+def _priors():
+    from common_tpu_torch import scalar_functions as sf
+
+    exp1 = sf.log_exponential(1.0)
+    return {1: lambda h: exp1(h["alpha"]) + exp1(h["inv_beta"]),
+            2: lambda h: exp1(h["alpha"]) + exp1(h["beta"])}
+
+
+@pytest.mark.cuda
+def test_cuda_nuts_hp_target_gradient_matches_float64(cuda_device):
+    """nuts_hp's target (gp and bb hypers of a config-3-shaped state, 4000
+    rows, K = 32): value and gradient in fp32 on the card against float64
+    on the CPU, to 1e-5 of the largest gradient entry (value: 1e-6)."""
+    from common_tpu_torch.kernels import hmc
+
+    _, _, _, gpu = _config3_state(cuda_device)
+    _, _, _, cpu = _config3_state("cpu", dtype=torch.float64)
+    f32, q32, _, _ = hmc.hyper_logprob(gpu, _priors())
+    f64, q64, _, _ = hmc.hyper_logprob(cpu, _priors())
+    v32, g32 = hmc.value_and_grad(f32)(q32)
+    v64, g64 = hmc.value_and_grad(f64)(q64)
+    assert g32.device.type == "cuda" and g32.dtype == torch.float32
+    assert abs(v32.item() - v64.item()) <= 1e-6 * abs(v64.item())
+    assert (g32.double().cpu() - g64).abs().max().item() <= 1e-5 * g64.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_niw_expfam_matches_float64(cuda_device):
+    """NIW's `stats_from_weights` and `expected_loglik_table` at D = 16,
+    K = 32 on the card against float64 on the CPU: the stats to 1e-5 of
+    each leaf's largest entry, the table to 1e-5 of its largest entry."""
+    from common_tpu_torch import likelihoods as tlik
+    from common_tpu_torch.likelihoods import expfam
+
+    _, data, _, gpu = _config3_state(cuda_device)
+    _, data64, _, cpu = _config3_state("cpu", dtype=torch.float64)
+    lik = tlik.get("niw")
+    r = torch.softmax(torch.tensor(np.random.default_rng(2).normal(size=(4000, 32))), -1)
+    (x, m), (x64, m64) = data[0], data64[0]
+    got = lik.stats_from_weights(gpu.hypers[0], x, m, r.float().to(cuda_device))
+    want = lik.stats_from_weights(cpu.hypers[0], x64, m64, r)
+    for leaf, v in want.items():
+        assert (got[leaf].double().cpu() - v).abs().max().item() <= 1e-5 * v.abs().max().item(), leaf
+    t32 = expfam.expected_loglik_table(lik, gpu.hypers[0], lik.posterior_hyper(gpu.hypers[0], got), x, m)
+    t64 = expfam.expected_loglik_table(lik, cpu.hypers[0], lik.posterior_hyper(cpu.hypers[0], want), x64, m64)
+    assert t32.shape == (4000, 32) and t32.device.type == "cuda"
+    assert (t32.double().cpu() - t64).abs().max().item() <= 1e-5 * t64.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_cavi_step_matches_the_cpu(cuda_device):
+    """One CAVI step on the card from a posterior carried to the CPU in
+    float64: vstats to rtol 1e-3 with an atol of 1e-4 of each leaf's largest
+    entry, the ELBO to 1e-6."""
+    from common_tpu_torch import convert
+    from common_tpu_torch.kernels import svi
+
+    defn, data, hps, _ = _config3_state(cuda_device)
+    post = svi.init(defn, data, torch.Generator(cuda_device).manual_seed(5), cluster_hp={"alpha": 1.0},
+                    feature_hps=hps)
+
+    def f64(tree):
+        if isinstance(tree, dict):
+            return {k: f64(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(f64(v) for v in tree)
+        return tree.astype(np.float64) if isinstance(tree, np.ndarray) and tree.dtype.kind == "f" else tree
+
+    post64 = convert.svi_from_numpy(f64(convert.svi_to_numpy(post)), device="cpu")
+    data64 = tuple((x.double().cpu(), m.double().cpu()) for x, m in data)
+    got, e32 = svi.fit_cavi(post, data, 1)
+    want, e64 = svi.fit_cavi(post64, data64, 1)
+    assert abs(e32.item() - e64.item()) <= 1e-6 * abs(e64.item())
+    for a_f, b_f in zip(got.vstats, want.vstats):
+        for leaf, b in b_f.items():
+            a = a_f[leaf].double().cpu()
+            assert ((a - b).abs() <= 1e-3 * b.abs() + 1e-4 * b.abs().max()).all(), leaf

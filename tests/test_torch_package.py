@@ -35,6 +35,8 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.likelihoods.dm, common_tpu_torch.likelihoods.gp\n"
         "import common_tpu_torch.likelihoods.nich, common_tpu_torch.kernels.smc\n"
         "import common_tpu_torch.kernels.splitmerge, common_tpu_torch.kernels.annealing\n"
+        "import common_tpu_torch.kernels.hmc, common_tpu_torch.kernels.svi\n"
+        "import common_tpu_torch.likelihoods.expfam\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
