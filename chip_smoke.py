@@ -109,6 +109,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    `to_state` and `predictive_logpdf` held-out densities; and nuts_theta
    on a bbnc state over the binary column (p inside its bounds and within
    6 sd of its Beta conditional).
+10. BASELINE config 4, HDP-LDA (run after phase 9, before phase 6), at the
+   JAX record's recipe, not cut (bench.py:1010-1110): 1,000,000 docs of 50
+   tokens, V = 10,000 in 4 planted blocks of 2,500 words (doc d draws from
+   block d % 4), 1% of positions held out, K = 32, made on the card.
+   (a) blocked_sweep_dense(doc_chunk=20,000) + sample_beta(max_count=50) +
+   score_joint: 3 sweeps untimed, 3 from the same start timed with CUDA
+   events (utils/profiling.benchmark), 15 more. Checks the count tables
+   equal a recount of z, each doc_topic row sums to its doc's tokens, beta
+   on the simplex, held-out z unmoved, the score above the initial state's,
+   the held-out perplexity under 5,000, no kernel launched; prints sweeps/s,
+   tokens/s, peak memory, the ms of the draws, the sweep and the CRT, the
+   idle share of a traced sweep, the float64 gap of score_joint and the
+   largest count slot, beside the JAX record's 2887.67 and the planted
+   floor of 2,500 (history, no bar). (b) The runner's HDP family,
+   [assign_blocked, concentrations], 2 iterations on the flat corpus and one
+   step under `set_sync_debug_mode("error")`: finite alpha and gamma,
+   recounts; prints ms an iteration by kernel and the flat sweep's peak
+   memory. (c) examples/lda_topics.py's corpus (200 x 30, V = 30, K = 10)
+   through [assign, concentrations] with a JSONL trace: 5 sweeps, a
+   checkpoint after 1 sweep resumed for 1 more equal bit for bit; prints
+   ms a sweep, the perplexity drop and launches a token. (d) Online LDA on
+   the first 100,000 training docs ([100,000 x 10,000] f32 counts: docs
+   cut, not width): 10 CAVI steps (the bound never falls by more than 1e-5
+   of itself), the first step on 2,000 docs within rtol 1e-4 of float64 on
+   the CPU, 200 SVI steps at batch 1024 lowering the held-out perplexity of
+   docs 100,000-101,999 below init's.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -172,6 +198,16 @@ N9, DG9, K9, HELD9, ITERS9 = 100_000, 16, 32, 2048, 10
 STEPS9, DEPTH9 = 2, 5  # the recipe's NUTS transitions a kernel call and tree depth
 CAVI9, CHECK9, SVI9, BATCH9 = 30, 3, 200, 1024  # CAVI steps (the first CHECK9 against f64), SVI steps, batch
 THETA9 = 3  # nuts_theta iterations on a bbnc state over phase 9's binary column
+# config 4, HDP-LDA, at the JAX record's recipe (bench.py:1010-1110, run_hdp_tier(1_000_000,
+# 50, 32, 10_000, 3, ...) at bench.py:1550), not cut: D docs of L tokens over V words in
+# BLOCKS planted blocks, K topics, HELD10 of token positions held out, doc_chunk CHUNK10
+D10, L10, K10, V10, BLOCKS10, HELD10, CHUNK10 = 1_000_000, 50, 32, 10_000, 4, 0.01, 20_000
+SWEEPS10, MORE10, RUNNER10 = 3, 15, 2  # the timed call, the sweeps after it (18 in all), runner iterations
+JAX_PPL10 = 2887.67  # BENCH_r05.json summary.hdp: a TPU run with threefry draws; history, never a bar
+# (c) examples/lda_topics.py's corpus through the collapsed runner; (d) online LDA on the
+# first LDA10 training docs of (a)'s corpus (docs cut, not width), docs LDA10.. + HELD_LDA10 held out
+DOCS10C, LEN10C, V10C, K10C, MORE10C, TRACE_DOCS10C = 200, 30, 30, 10, 3, 20
+LDA10, HELD_LDA10, CAVI10, CHECK_DOCS10, SVI10, BATCH10 = 100_000, 2_000, 10, 2_000, 200, 1024
 # generator seeds of phase 6's CRP initial state and of its sweeps (see PERF.md:
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
@@ -1809,6 +1845,319 @@ def _anneal(defn, data, z_true) -> dict:
             "agreement": agree, "k_active": int((s.counts > 0).sum())}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: BASELINE config 4, HDP-LDA
+# ---------------------------------------------------------------------------
+def hdp_corpus(dev, gen):
+    """(a)'s corpus on the card (bench.py:1025-1042): doc d draws its L10 words
+    uniformly from vocab block d % BLOCKS10; HELD10 of the positions held out."""
+    import torch
+
+    block = V10 // BLOCKS10
+    words = (torch.arange(D10, device=dev) % BLOCKS10)[:, None] * block
+    words = words + torch.randint(0, block, (D10, L10), generator=gen, device=dev)
+    held = torch.rand((D10, L10), generator=gen, device=dev) < HELD10
+    return words, (~held).float(), held
+
+
+def require_recount(s, data, what: str) -> None:
+    """The three count tables equal a recount from z, exactly."""
+    import torch
+
+    from common_tpu_torch.topic import hdp
+
+    for name, got, want in zip(("doc_topic", "topic_word", "topic_total"),
+                               (s.doc_topic, s.topic_word, s.topic_total),
+                               hdp._counts(s.z, data, s.n_docs, s.n_topics, s.vocab_size)):
+        require(torch.equal(got, want), f"{what}: {name} differs from a recount of z")
+
+
+def _hdp_float64_gap(s) -> float:
+    """|score_joint in fp32 - in float64 (both on the card)| / |float64|."""
+    import dataclasses
+
+    from common_tpu_torch import topic
+
+    s64 = dataclasses.replace(
+        s, beta=s.beta.double(), doc_topic=s.doc_topic.double(), topic_word=s.topic_word.double(),
+        topic_total=s.topic_total.double(), hypers={k: v.double() for k, v in s.hypers.items()})
+    a, b = topic.score_joint(s).item(), topic.score_joint(s64).item()
+    return abs(a - b) / abs(b)
+
+
+def _hdp_chain(dev) -> dict:
+    """(a): the record's chain, dense sweeps + the CRT beta draw, 3 untimed, 3
+    timed from the same start, 15 more; then (b), the runner on its end."""
+    import torch
+
+    from common_tpu_torch import rng, topic
+    from common_tpu_torch.runner import HDP_FAMILY, HDP_KERNELS, make_step, runner
+    from common_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    gen = rng(SEED + 10, dev).generator
+    words, mask, held = hdp_corpus(dev, gen)
+    data = topic.dense_token_data(words, mask)
+    s0 = topic.initialize(data, K10, V10, gen, n_docs=D10)
+    idx = torch.nonzero(held.reshape(-1)).flatten()
+    held_td = topic.TokenData(words.reshape(-1)[idx], idx // L10, torch.ones(idx.shape[0], device=dev))
+    score0, ppl0 = topic.score_joint(s0).item(), topic.perplexity(s0, held_td).item()
+    log(f"config 4 corpus {D10} docs x {L10} tokens, V={V10}, {BLOCKS10} blocks, K={K10}, "
+        f"{idx.shape[0]} held-out positions: set-up {time.perf_counter() - t_phase:.2f} s; "
+        f"initial score_joint {score0:.6e}, held-out perplexity {ppl0:.2f}")
+
+    def chain(s, n):
+        scores = []
+        for _ in range(n):
+            s = topic.blocked_sweep_dense(s, words, mask, gen, doc_chunk=CHUNK10)
+            s = topic.sample_beta(s, gen, max_count=L10)
+            scores.append(topic.score_joint(s))
+        return s, torch.stack(scores)
+
+    _zero_launches()
+    out = {}
+
+    def timed():
+        out["s"], out["scores"] = chain(s0, SWEEPS10)
+
+    torch.cuda.reset_peak_memory_stats()
+    timing = profiling.benchmark(timed, iters=1, warmup=1)
+    peak = profiling.device_memory_stats()["allocated_bytes.all.peak"]
+    sweeps_per_s = SWEEPS10 / timing["median_s"]
+    tokens_per_s = sweeps_per_s * D10 * L10
+    log(f"blocked_sweep_dense(doc_chunk={CHUNK10}) + sample_beta(max_count={L10}) + score_joint x "
+        f"{SWEEPS10}, timed with CUDA events after an untimed call: {timing['median_s']:.3f} s, "
+        f"{sweeps_per_s:.3f} sweeps/s, {tokens_per_s:.4e} tokens/s (all {D10 * L10} positions a sweep, "
+        f"as the record counts; the JAX record 6.664e7 on a TPU, history); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    s, more = chain(out["s"], MORE10)
+    launched = _launches()
+    require(not any(launched.values()), f"config 4 launched a hand-written kernel: {launched}")
+
+    # where a sweep's time goes: the draws, the counts (the sweep's doc_topic
+    # scatter and topic_word index_add over all docs at once), the rest is
+    # score-and-assign; then the CRT + beta draw
+    valid = mask > 0
+
+    def counts():
+        zi = torch.where(valid, s.z.view(D10, L10).long(), K10)
+        dk = torch.zeros((D10, K10 + 1), device=dev)
+        dk.scatter_add_(1, zi, torch.ones(zi.shape, device=dev))
+        flat = torch.where(valid.reshape(-1), s.z.long() * V10 + words.reshape(-1), K10 * V10)
+        return dk, topic.hdp._segment_count(flat, K10 * V10)
+
+    draw_ms = cuda_ms(lambda: topic.hdp._draw_phi_theta(s, gen), 3)
+    count_ms = cuda_ms(counts, 3)
+    sweep_ms = cuda_ms(lambda: topic.blocked_sweep_dense(s, words, mask, gen, doc_chunk=CHUNK10), 3)
+    crt_ms = cuda_ms(lambda: topic.sample_beta(s, gen, max_count=L10), 3)
+    score_ms = cuda_ms(lambda: topic.score_joint(s), 3)
+    log(f"ms: dense sweep {sweep_ms:.2f} (phi, theta draws {draw_ms:.2f}; counts {count_ms:.2f}; "
+        f"score-and-assign {sweep_ms - draw_ms - count_ms:.2f}), CRT + beta draw {crt_ms:.2f}, "
+        f"score_joint {score_ms:.2f}")
+    idle, launched_n = profile_sweep(lambda: topic.sample_beta(
+        topic.blocked_sweep_dense(s, words, mask, gen, doc_chunk=CHUNK10), gen, max_count=L10))
+
+    require_recount(s, data, "after 18 sweeps")
+    require(torch.equal(s.doc_topic.sum(-1), mask.sum(-1)), "a doc_topic row does not sum to its doc's tokens")
+    beta_sum = s.beta.sum().item()
+    require(bool((s.beta > 0).all()) and abs(beta_sum - 1.0) <= 1e-5, f"beta off the simplex: sum {beta_sum}")
+    require(torch.equal(s.z.view(D10, L10)[held], s0.z.view(D10, L10)[held]), "a held-out position's z moved")
+    score, gap, slot = topic.score_joint(s).item(), _hdp_float64_gap(s), s.topic_total.max().item()
+    trace = torch.cat([out["scores"], more]).tolist()
+    log(f"score_joint over 18 sweeps: {trace[0]:.6e} -> {score:.6e} (initial {score0:.6e}); fp32 vs "
+        f"float64 on the card: relative gap {gap:.3e}; largest count slot {slot:.0f} (float32 exact to "
+        f"{2 ** 24}); active topics {int(s.active_topics())}")
+    require(np.isfinite(score) and score > score0, "score_joint did not rise above the initial state's")
+    require(slot < 2 ** 24, "a count slot passed float32's exact range")
+    ppl = topic.perplexity(s, held_td).item()
+    log(f"held-out per-token perplexity after 18 sweeps: {ppl:.2f} (bar < 5000; uniform {V10}, planted "
+        f"floor {V10 // BLOCKS10}; the JAX record {JAX_PPL10} on a TPU, history)")
+    require(np.isfinite(ppl) and ppl < 5000, f"held-out perplexity {ppl} not under 5000")
+    chain_rec = {"sweeps_per_s": sweeps_per_s, "tokens_per_s": tokens_per_s, "timed_s": timing["median_s"],
+                 "peak_gib": peak / 2**30, "sweep_ms": sweep_ms, "draw_ms": draw_ms, "count_ms": count_ms,
+                 "crt_beta_ms": crt_ms,
+                 "score_ms": score_ms, "idle_share": idle, "device_ops": launched_n, "score_joint": score,
+                 "score_f64_rel_gap": gap, "largest_slot": slot, "active_topics": int(s.active_topics()),
+                 "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace}
+
+    # (b) the runner's HDP family on the same corpus, from (a)'s end
+    config = [("assign_blocked", {}), ("concentrations", {})]
+    flat = data  # the dense corpus's flat view: the runner's sweep is the flat blocked_sweep
+    t0 = time.perf_counter()
+    run = runner(None, flat, s, config)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r_state = run.run(gen, RUNNER10, collect=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    r_peak = profiling.device_memory_stats()["allocated_bytes.all.peak"]
+    step = make_step(config, flat, HDP_FAMILY)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r_state = step(r_state, gen)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    kw = HDP_FAMILY["default_kw"](flat)
+    blocked_ms = cuda_ms(lambda: HDP_KERNELS["assign_blocked"](r_state, flat, gen, **kw), 2)
+    conc_ms = cuda_ms(lambda: HDP_KERNELS["concentrations"](r_state, flat, gen, **kw), 2)
+    alpha, gamma = r_state.hypers["alpha"].item(), r_state.hypers["gamma"].item()
+    require(np.isfinite(alpha) and np.isfinite(gamma) and alpha > 0 and gamma > 0,
+            f"concentrations not finite and positive: alpha {alpha}, gamma {gamma}")
+    require_recount(r_state, flat, "runner")
+    launched = _launches()
+    require(not any(launched.values()), f"the HDP runner launched a hand-written kernel: {launched}")
+    log(f"runner [assign_blocked, concentrations] on the flat corpus: built in {build_s:.2f} s (max_count "
+        f"{kw['max_count']} from the host), {RUNNER10} iterations {run_s:.2f} s "
+        f"({1e3 * run_s / RUNNER10:.1f} ms an iteration with the score trace; assign_blocked {blocked_ms:.1f}, "
+        f"concentrations {conc_ms:.1f}); peak memory of the unchunked [T, K] sweep {r_peak / 2**30:.2f} GiB; "
+        f"one more step under set_sync_debug_mode('error'): no host wait; alpha {alpha:.4f}, gamma {gamma:.4f}")
+    runner_rec = {"iteration_ms": 1e3 * run_s / RUNNER10, "assign_blocked_ms": blocked_ms,
+                  "concentrations_ms": conc_ms, "peak_gib": r_peak / 2**30, "alpha": alpha, "gamma": gamma}
+    return {"chain": chain_rec, "runner": runner_rec, "words": words, "mask": mask}
+
+
+def _hdp_collapsed(dev) -> dict:
+    """(c): examples/lda_topics.py's corpus through [assign, concentrations],
+    a checkpoint-resume pair, a few more sweeps."""
+    import os
+    import tempfile
+
+    import torch
+
+    from common_tpu_torch import io, rng, topic
+    from common_tpu_torch.data import variadic_dataview
+    from common_tpu_torch.runner import runner
+
+    r = np.random.default_rng(1)
+    rows = [r.choice(np.arange((d % 3) * 10, (d % 3 + 1) * 10), size=LEN10C) for d in range(DOCS10C)]
+    view = variadic_dataview(rows, device=dev)
+    data = topic.token_data(view)
+    s0 = topic.initialize(view, K10C, V10C, rng(SEED + 11, dev).generator, eta=0.1)
+    ppl0 = topic.perplexity(s0, data).item()
+    config = [("assign", {}), ("concentrations", {})]
+    _zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweeps.jsonl")
+        run = runner(None, data, s0, config, jsonl_path=path)
+        gen = rng(SEED + 12, dev).generator
+        sweep_s = []
+        for _ in range(2 + MORE10C):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.run(gen, 1)
+            torch.cuda.synchronize()
+            sweep_s.append(time.perf_counter() - t0)
+        with open(path) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()]
+    out = run.get_latent()
+    require(len(lines) == 2 + MORE10C and [x["score_joint"] for x in lines] == run.score_trace.astype(
+        np.float64).tolist(), "JSONL lines differ from the score trace")
+    require(np.isfinite(run.score_trace).all(), "non-finite score_joint")
+    require_recount(out, data, "collapsed chain")
+    launched = _launches()
+    require(not any(launched.values()), f"the collapsed HDP path launched a hand-written kernel: {launched}")
+
+    g = rng(SEED + 12, dev).generator
+    first = runner(None, data, s0, config)
+    first.run(g, 1)
+    blob = io.serialize(first.get_latent(), extra={"gen": g})
+    restored, extra = io.deserialize(blob, device=dev)
+    rest = runner(None, data, restored, config)
+    rest.run(extra["gen"], 1)
+    same_z = np.array_equal(np.concatenate([first.assignment_trace, rest.assignment_trace]),
+                            run.assignment_trace[:2])
+    same_score = np.array_equal(np.concatenate([first.score_trace, rest.score_trace]), run.score_trace[:2])
+    log(f"collapsed HDP resume after 1 sweep from a {len(blob)}-byte checkpoint: z "
+        f"{'equal' if same_z else 'DIFFER'}, scores {'equal' if same_score else 'DIFFER'} (bit for bit)")
+    require(same_z and same_score, "the resumed collapsed HDP run differs from the uninterrupted one")
+
+    sub_view = variadic_dataview(rows[:TRACE_DOCS10C], device=dev)
+    sub = topic.token_data(sub_view)
+    s_sub = topic.initialize(sub_view, K10C, V10C, gen, eta=0.1)
+    idle, launched_n = profile_sweep(lambda: topic.collapsed_sweep(s_sub, sub, gen))
+    per_token = launched_n / (TRACE_DOCS10C * LEN10C)
+    ppl = topic.perplexity(out, data).item()
+    log(f"collapsed runner x {2 + MORE10C} on {DOCS10C} x {LEN10C} tokens, V={V10C}, K={K10C}: "
+        f"{[round(t, 3) for t in sweep_s]} s a sweep; perplexity {ppl0:.3f} -> {ppl:.3f}; active topics "
+        f"{int(out.active_topics())}; traced sweep of {TRACE_DOCS10C} docs: {per_token:.1f} device kernels "
+        f"and copies a token, idle share {idle:.3f}")
+    require(ppl < ppl0, "the collapsed chain did not lower the perplexity")
+    return {"sweep_s": sweep_s, "perplexity_init": ppl0, "perplexity": ppl, "launches_per_token": per_token,
+            "idle_share": idle, "checkpoint_bytes": len(blob)}
+
+
+def _online_lda(dev, words, mask) -> dict:
+    """(d): CAVI and minibatch SVI on the first LDA10 docs of (a)'s corpus."""
+    import torch
+
+    from common_tpu_torch import rng, topic
+    from common_tpu_torch.topic import svi as lda
+
+    t0 = time.perf_counter()
+    n = LDA10 + HELD_LDA10
+    counts_all = lda.doc_term_matrix(topic.dense_token_data(words[:n], mask[:n]), V10, n_docs=n)
+    counts, held = counts_all[:LDA10], counts_all[LDA10:]
+    gen = rng(SEED + 13, dev).generator
+    post0 = lda.init(K10, V10, gen, alpha=0.5, eta=0.1)
+    torch.cuda.synchronize()
+    log(f"online LDA: [{LDA10} x {V10}] f32 counts ({counts.numel() * 4 / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post, bounds = lda.fit_cavi(post0, counts, CAVI10)
+    bounds = bounds.tolist()
+    cavi_s = time.perf_counter() - t0
+    worst = min((b - a) / abs(a) for a, b in zip(bounds[:-1], bounds[1:]))
+    log(f"fit_cavi x {CAVI10}: {cavi_s:.2f} s, {CAVI10 / cavi_s:.3f} iterations/s; bound {bounds[0]:.6e} -> "
+        f"{bounds[-1]:.6e}, smallest step {worst:.3e} of itself (bar >= -1e-5)")
+    require(all(np.isfinite(bounds)) and worst >= -1e-5, "the CAVI bound fell")
+
+    c_dev = counts[:CHECK_DOCS10]
+    lam_card = lda.step(post0, c_dev, CHECK_DOCS10, 1.0).lam.cpu().double()
+    post64 = lda.LDAPosterior(post0.lam.cpu().double(), post0.alpha.cpu().double(), post0.eta.cpu().double())
+    lam_cpu = lda.step(post64, c_dev.cpu().double(), CHECK_DOCS10, 1.0).lam
+    rel = ((lam_card - lam_cpu).abs() / lam_cpu.abs()).max().item()
+    log(f"first CAVI step on {CHECK_DOCS10} docs, card fp32 vs CPU float64 from one posterior: max relative "
+        f"error of lam {rel:.3e} (bar 1e-4)")
+    require(rel <= 1e-4, "the card's CAVI step is off the float64 one")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = lda.fit_svi(post0, counts, gen, SVI10, BATCH10, tau0=64.0, kappa=0.7)
+    torch.cuda.synchronize()
+    svi_s = time.perf_counter() - t0
+    p_init, p_svi, p_cavi = (lda.perplexity(p, held).item() for p in (post0, fitted, post))
+    log(f"fit_svi x {SVI10} at batch {BATCH10} (tau0 64, kappa 0.7): {svi_s:.2f} s, {SVI10 / svi_s:.2f} "
+        f"steps/s; held-out perplexity on docs {LDA10}-{n - 1}: init {p_init:.2f}, SVI {p_svi:.2f}, "
+        f"CAVI {p_cavi:.2f}")
+    require(np.isfinite(p_svi) and p_svi < p_init, "SVI did not lower the held-out perplexity")
+    return {"cavi_iterations_per_s": CAVI10 / cavi_s, "cavi_bounds": bounds, "cavi_f64_rel_err": rel,
+            "svi_steps_per_s": SVI10 / svi_s, "perplexity_init": p_init, "perplexity_svi": p_svi,
+            "perplexity_cavi": p_cavi}
+
+
+def phase_hdp(dev=None) -> dict:
+    """Config 4 (HDP-LDA) at the JAX record's recipe, its runner family, the
+    collapsed sampler with a resume, and online LDA. Runs none of the four
+    kernels, as the JAX package's topic/ runs none of the Pallas kernels."""
+    import torch
+
+    dev = torch.device("cuda") if dev is None else dev
+    t_phase = time.perf_counter()
+    rec = _hdp_chain(dev)
+    words, mask = rec.pop("words"), rec.pop("mask")
+    rec["collapsed"] = _hdp_collapsed(dev)
+    rec["lda"] = _online_lda(dev, words, mask)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 wall time {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1826,13 +2175,14 @@ def main() -> int:
         del headline
         config2 = phase_config2()
         config3 = phase_config3()
+        hdp_out = phase_hdp()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
-                    "collapsed": collapsed, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
+                    "collapsed": collapsed, "hdp": hdp_out, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ is carried the same way, with the fields of `SVIPosterior`:
     {"stick_a": [K-1], "stick_b": [K-1], "dir_conc": [K],
      "vstats": ({name: array}, ...), "hypers": ({name: array}, ...),
      "cluster_hp": {name: array}, "lik_names": (str, ...), "fixed": bool}
+
+and so are the topic states, `topic.hdp.HDPState` and `topic.svi.LDAPosterior`:
+
+    {"z": [T] int32, "beta": [K+1], "doc_topic": [D, K], "topic_word": [K, V],
+     "topic_total": [K], "hypers": {"alpha": (), "gamma": (), "eta": ()}}
+    {"lam": [K, V], "alpha": [K], "eta": ()}
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch
 
 from common_tpu_torch.kernels.svi import SVIPosterior
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.topic.hdp import HDPState
+from common_tpu_torch.topic.svi import LDAPosterior
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -53,7 +61,9 @@ def _arrays(v):
 
 def _from_numpy(cls, leaves: Dict[str, Any], device):
     fields = {f.name: _tensors(leaves[f.name], device) for f in dataclasses.fields(cls)}
-    return cls(**{**fields, "fixed": bool(leaves["fixed"])})
+    if "fixed" in fields:
+        fields["fixed"] = bool(leaves["fixed"])
+    return cls(**fields)
 
 
 def _to_numpy(obj) -> Dict[str, Any]:
@@ -78,4 +88,24 @@ def svi_from_numpy(leaves: Dict[str, Any], device="cuda") -> SVIPosterior:
 
 def svi_to_numpy(post: SVIPosterior) -> Dict[str, Any]:
     """The numpy leaves of a port posterior (the inverse of `svi_from_numpy`)."""
+    return _to_numpy(post)
+
+
+def hdp_from_numpy(leaves: Dict[str, Any], device="cuda") -> HDPState:
+    """The port's HDP state from numpy leaves, on `device`."""
+    return _from_numpy(HDPState, leaves, device)
+
+
+def hdp_to_numpy(state: HDPState) -> Dict[str, Any]:
+    """The numpy leaves of a port HDP state (the inverse of `hdp_from_numpy`)."""
+    return _to_numpy(state)
+
+
+def lda_from_numpy(leaves: Dict[str, Any], device="cuda") -> LDAPosterior:
+    """The port's variational LDA posterior from numpy leaves, on `device`."""
+    return _from_numpy(LDAPosterior, leaves, device)
+
+
+def lda_to_numpy(post: LDAPosterior) -> Dict[str, Any]:
+    """The numpy leaves of a port LDA posterior (the inverse of `lda_from_numpy`)."""
     return _to_numpy(post)

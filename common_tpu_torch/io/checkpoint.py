@@ -12,7 +12,11 @@ static fields and the skeleton of `extra`. So a blob written by
 `common_tpu.io.checkpoint.serialize` loads here, and the reverse. Leading
 batch axes (stacked chains) ride along, since leaves are saved verbatim.
 
-The port handles `MixtureState`. `extra` carries what a bit-exact resume
+The port handles `MixtureState`, `SVIPosterior` (kernels/svi.py), `HDPState`
+(topic/hdp.py) and `LDAPosterior` (topic/svi.py), under the JAX package's
+type names and field paths; `IRMState` waits for the IRM port. A state's
+tensors are saved in their dtype; an HDP state's word and doc ids are not
+state (they are the corpus). `extra` carries what a bit-exact resume
 needs: a `torch.Generator` is saved through `get_state()` under the kind
 ``torch_generator``. A JAX PRNG key (kind ``prng_key``) is refused on load:
 threefry keys have no torch counterpart.
@@ -29,10 +33,20 @@ import numpy as np
 import torch
 
 from common_tpu_torch import validator
-from common_tpu_torch.state import MixtureState
 
 _META_KEY = "__meta__"
-_STATIC = ("lik_names", "fixed")  # the JAX dataclass's static fields
+_STATIC = ("lik_names", "fixed")  # the JAX dataclasses' static fields
+
+
+def _state_types() -> Dict[str, type]:
+    # late imports: io need not pull in the samplers at import
+    from common_tpu_torch.kernels.svi import SVIPosterior
+    from common_tpu_torch.state import MixtureState
+    from common_tpu_torch.topic.hdp import HDPState
+    from common_tpu_torch.topic.svi import LDAPosterior
+
+    return {"MixtureState": MixtureState, "HDPState": HDPState, "SVIPosterior": SVIPosterior,
+            "LDAPosterior": LDAPosterior}
 
 
 def _flatten_value(v, path: str, arrays: Dict[str, np.ndarray]):
@@ -72,10 +86,11 @@ def _rebuild_value(spec, path: str, z, device: torch.device):
     return torch.from_numpy(np.array(z[path])).to(device)
 
 
-def serialize(state: MixtureState, extra: Optional[Dict[str, Any]] = None) -> bytes:
+def serialize(state, extra: Optional[Dict[str, Any]] = None) -> bytes:
     """state -> bytes (reference parity: state.serialize())."""
-    if not isinstance(state, MixtureState):
-        raise TypeError(f"cannot checkpoint {type(state).__name__}; known state types: ['MixtureState']")
+    tname, types = type(state).__name__, _state_types()
+    if types.get(tname) is not type(state):
+        raise TypeError(f"cannot checkpoint {tname}; known state types: {sorted(types)}")
     arrays: Dict[str, np.ndarray] = {}
     fields, static = {}, {}
     for f in dataclasses.fields(state):
@@ -85,7 +100,7 @@ def serialize(state: MixtureState, extra: Optional[Dict[str, Any]] = None) -> by
         else:
             fields[f.name] = _flatten_value(v, f"f.{f.name}", arrays)
     extra_spec = {k: _flatten_value(v, f"extra.{k}", arrays) for k, v in (extra or {}).items()}
-    meta = {"type": "MixtureState", "fields": fields, "static": static,
+    meta = {"type": tname, "fields": fields, "static": static,
             "extra": extra_spec, "version": 2}
     buf = _io.BytesIO()
     np.savez(buf, **arrays, **{_META_KEY: np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)})
@@ -107,16 +122,17 @@ def deserialize(blob: bytes, device="cuda"):
     with np.load(_io.BytesIO(blob)) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode())
         validator.validate_one_of(meta["version"], (2,), "checkpoint version")
-        validator.validate_one_of(meta["type"], ("MixtureState",), "checkpoint state type")
+        types = _state_types()
+        validator.validate_one_of(meta["type"], sorted(types), "checkpoint state type")
         kwargs = {name: _rebuild_value(spec, f"f.{name}", z, device)
                   for name, spec in meta["fields"].items()}
         for name, v in meta["static"].items():
             kwargs[name] = _tuplify(v)
         extra = {k: _rebuild_value(spec, f"extra.{k}", z, device) for k, spec in meta["extra"].items()}
-    return MixtureState(**kwargs), extra
+    return types[meta["type"]](**kwargs), extra
 
 
-def save(path: str, state: MixtureState, extra: Optional[Dict[str, Any]] = None):
+def save(path: str, state, extra: Optional[Dict[str, Any]] = None):
     with open(path, "wb") as f:
         f.write(serialize(state, extra))
 

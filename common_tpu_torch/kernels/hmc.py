@@ -391,7 +391,7 @@ class DAState(NamedTuple):
     t: torch.Tensor
 
 
-def da_init(step_size, dtype=torch.float32, device="cpu"):
+def da_init(step_size, dtype=torch.float32, device="cuda"):
     eps = torch.as_tensor(step_size, dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     return DAState(torch.log(eps), torch.log(eps), zero, torch.log(10.0 * eps), zero)
@@ -413,7 +413,7 @@ class WelfordState(NamedTuple):
     count: torch.Tensor
 
 
-def welford_init(dim, dtype=torch.float32, device="cpu"):
+def welford_init(dim, dtype=torch.float32, device="cuda"):
     z = torch.zeros(dim, dtype=dtype, device=device)
     return WelfordState(z, z, torch.zeros((), dtype=dtype, device=device))
 

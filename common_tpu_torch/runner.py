@@ -1,4 +1,4 @@
-"""Inference runner (port of `common_tpu/runner.py`, mixture family).
+"""Inference runner (port of `common_tpu/runner.py`, mixture and HDP families).
 
 Reference analog: the `runner` layer of the reference ecosystem
 (`kernels:microscopes/kernels/runner.py`): takes a model definition, a
@@ -15,6 +15,12 @@ loop itself never waits on the device between sweeps (the slice sampler
 does, inside `slice_hp` and `slice_theta`: see `kernels/slice_.py`; so do
 the NUTS kernels, one boolean a leaf and a doubling: see `kernels/hmc.py`).
 `jsonl_path` adds one JSON line per sweep, written at the end of each `run`.
+
+A state family supplies its kernel registry, joint score, counts,
+assignments, saturation test and default kernel keywords: `MixtureState`
+(`KERNELS` below) and `HDPState` (`HDP_KERNELS`: assign, assign_blocked,
+beta, concentrations, with the CRT cap `max_count` worked out once, on the
+host, when the runner is built).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
 from common_tpu_torch.kernels import blocked, gibbs, hmc, slice_, splitmerge
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.topic import hdp
 from common_tpu_torch.utils import diagnostics
 
 
@@ -110,47 +117,112 @@ KERNELS: Dict[str, Callable] = {
 }
 
 
-def normalize_config(kernel_config: Sequence) -> Tuple[Tuple[str, dict], ...]:
+# ---------------------------------------------------------------------------
+# state families: the runner drives mixture and HDP states through the same
+# kernel-config interface (reference runner parity for the lda sibling repo)
+# ---------------------------------------------------------------------------
+def _k_hdp_assign(state, data, generator, **kw):
+    return hdp.collapsed_sweep(state, data, generator)
+
+
+def _k_hdp_blocked(state, data, generator, **kw):
+    return hdp.blocked_sweep(state, data, generator)
+
+
+def _k_hdp_beta(state, data, generator, **kw):
+    return hdp.sample_beta(state, generator, kw["max_count"])
+
+
+def _k_hdp_concentrations(state, data, generator, **kw):
+    return hdp.sample_concentrations(
+        state, generator, kw["max_count"], kw.get("a_alpha", 1.0), kw.get("b_alpha", 1.0),
+        kw.get("a_gamma", 1.0), kw.get("b_gamma", 1.0))
+
+
+# every HDP kernel gets max_count (the longest document) unless its config names one
+HDP_KERNELS: Dict[str, Callable] = {
+    "assign": _k_hdp_assign,
+    "assign_blocked": _k_hdp_blocked,
+    "beta": _k_hdp_beta,
+    "concentrations": _k_hdp_concentrations,  # kw: a_alpha, b_alpha, a_gamma, b_gamma
+}
+
+
+def _hdp_default_kw(data) -> dict:
+    """The static CRT cap: the most valid tokens in any doc bounds every n_dk.
+    Worked out once, on the host."""
+    doc_ids, mask = data.doc_ids.cpu().numpy(), data.mask.cpu().numpy()
+    lengths = np.bincount(doc_ids, weights=mask) if doc_ids.size else np.ones(1)
+    return {"max_count": max(int(np.max(lengths)), 1)}
+
+
+def _hdp_saturated(st) -> torch.Tensor:
+    # transient counts on every truncation slot are normal for blocked sweeps;
+    # the truncation only binds once the remainder stick mass is spent too
+    return (st.topic_total > 0).all() & (st.beta[-1] < 1e-3)
+
+
+# a family: kernel registry, score_joint, counts, assignments, is_saturated,
+# and the default keywords of its kernels given the data
+MIXTURE_FAMILY = dict(kernels=KERNELS, score_joint=state_mod.score_joint, counts=lambda st: st.counts,
+                      assignments=lambda st: st.assignments, is_saturated=state_mod.is_saturated,
+                      default_kw=lambda data: {})
+HDP_FAMILY = dict(kernels=HDP_KERNELS, score_joint=hdp.score_joint, counts=lambda st: st.topic_total,
+                  assignments=lambda st: st.z, is_saturated=_hdp_saturated, default_kw=_hdp_default_kw)
+
+
+def _family_of(state) -> dict:
+    if isinstance(state, MixtureState):
+        return MIXTURE_FAMILY
+    if isinstance(state, hdp.HDPState):
+        return HDP_FAMILY
+    raise TypeError(f"no runner family for state type {type(state).__name__}")
+
+
+def normalize_config(kernel_config: Sequence,
+                     kernels: Optional[Dict[str, Callable]] = None) -> Tuple[Tuple[str, dict], ...]:
     """Accept ['assign_blocked'] or [('assign_blocked', {...})] mixes."""
+    registry = KERNELS if kernels is None else kernels
     out: List[Tuple[str, dict]] = []
     for entry in kernel_config:
         if isinstance(entry, str):
             name, kw = entry, {}
         else:
             name, kw = entry
-        validator.validate_one_of(name, KERNELS, "kernel name")
+        validator.validate_one_of(name, registry, "kernel name")
         out.append((name, dict(kw)))
     return tuple(out)
 
 
-def make_step(kernel_config: Sequence, data) -> Callable:
-    """Compose a kernel config into one `step(state, generator) -> state`."""
-    config = normalize_config(kernel_config)
+def make_step(kernel_config: Sequence, data, family: Optional[dict] = None) -> Callable:
+    """Compose a kernel config into one `step(state, generator) -> state`
+    (the mixture family's unless `family` names another)."""
+    family = MIXTURE_FAMILY if family is None else family
+    kernels = family["kernels"]
+    defaults = family["default_kw"](data)
+    config = tuple((name, {**defaults, **kw}) for name, kw in normalize_config(kernel_config, kernels))
 
     def step(state, generator):
         for name, kw in config:
-            state = KERNELS[name](state, data, generator, **kw)
+            state = kernels[name](state, data, generator, **kw)
         return state
 
     return step
 
 
-def _trace(state: MixtureState, collect_assignments: bool) -> Dict[str, torch.Tensor]:
-    out = {
-        "score": state_mod.score_joint(state),
-        "k_active": (state.counts > 0).sum(),
-        "counts": state.counts,
-    }
+def _trace(family: dict, state, collect_assignments: bool) -> Dict[str, torch.Tensor]:
+    counts = family["counts"](state)
+    out = {"score": family["score_joint"](state), "k_active": (counts > 0).sum(), "counts": counts}
     if collect_assignments:
-        out["assignments"] = state.assignments
+        out["assignments"] = family["assignments"](state)
     return out
 
 
-def _run_loop(state, generator, step, niters: int, collect_assignments: bool):
+def _run_loop(state, generator, step, family: dict, niters: int, collect_assignments: bool):
     traces = []
     for _ in range(niters):
         state = step(state, generator)
-        traces.append(_trace(state, collect_assignments))
+        traces.append(_trace(family, state, collect_assignments))
     stacked = {k: torch.stack([t[k] for t in traces]) for k in traces[0]}
     return state, stacked
 
@@ -159,6 +231,8 @@ class runner:
     """Reference-parity runner: r = runner(defn, data, state, config);
     r.run(generator, niters). Traces (assignments, joint score, active
     cluster count) are collected per sweep and exposed as host arrays.
+    Drives a MixtureState through `KERNELS` and an HDPState through
+    `HDP_KERNELS` (defn may be None there; data is its `TokenData`).
 
     jsonl_path: optional per-sweep record, one JSON line per sweep with the
     joint log score, the active-cluster count, the occupancy histogram and,
@@ -166,14 +240,13 @@ class runner:
     """
 
     def __init__(self, defn, data, state, kernel_config, jsonl_path: Optional[str] = None):
-        if not isinstance(state, MixtureState):
-            raise TypeError(f"no runner family for state type {type(state).__name__}")
         self._defn = defn
         self._data = data
         self._state = state
-        self._config = normalize_config(kernel_config)
-        self._step = make_step(self._config, data)
-        self._assign_width = int(state.assignments.shape[0])
+        self._family = _family_of(state)
+        self._config = normalize_config(kernel_config, self._family["kernels"])
+        self._step = make_step(self._config, data, self._family)
+        self._assign_width = int(self._family["assignments"](state).shape[0])
         self._assignment_trace = []
         self._score_trace = []
         self._k_active_trace = []
@@ -183,7 +256,7 @@ class runner:
     def run(self, generator: torch.Generator, niters: int = 1, collect: bool = True):
         validator.validate_positive(niters, "niters")
         self._state, trace = _run_loop(
-            self._state, generator, self._step, int(niters), collect
+            self._state, generator, self._step, self._family, int(niters), collect
         )
         if collect:
             self._assignment_trace.append(trace["assignments"].cpu().numpy())
@@ -213,11 +286,11 @@ class runner:
                 self._sweep_idx += 1
 
     def _warn_if_saturated(self):
-        if bool(state_mod.is_saturated(self._state)):
+        if bool(self._family["is_saturated"](self._state)):
             warnings.warn(
-                "all cluster slots are occupied: the sampler can no longer "
+                "all cluster/topic slots are occupied: the sampler can no longer "
                 "open new groups and the truncation may bias the posterior. "
-                "Rebuild the state with a larger k_max.",
+                "Rebuild the state with more slots (k_max, n_topics).",
                 RuntimeWarning,
                 stacklevel=3,
             )
@@ -249,5 +322,6 @@ class runner:
 def run_chain(state, data, generator, niters, kernel_config, collect_assignments=True):
     """Functional one-shot: returns (final_state, trace dict of [T, ...] tensors)."""
     validator.validate_positive(niters, "niters")
-    step = make_step(kernel_config, data)
-    return _run_loop(state, generator, step, int(niters), collect_assignments)
+    family = _family_of(state)
+    step = make_step(kernel_config, data, family)
+    return _run_loop(state, generator, step, family, int(niters), collect_assignments)

@@ -1,0 +1,468 @@
+"""HDP-LDA topic model (port of `common_tpu/topic/hdp.py`, single device).
+
+Reference analog: the `lda` sibling repo (`lda:microscopes/lda/model.pyx`,
+`lda:src/lda/state.cpp`) implements HDP-LDA over `common`'s variadic
+dataview with a collapsed direct-assignment Gibbs sampler (Teh et al. 2006
+"Hierarchical Dirichlet Processes", §5.3 posterior-representation scheme).
+
+Model (truncated to K topics; truncation error vanishes for K >> K_active):
+
+  beta        ~ stick-break(gamma)          global topic weights  [K+1]
+                (last entry = unrepresented remainder mass)
+  theta_d     ~ Dirichlet(alpha * beta_1:K) per-doc proportions
+  phi_k       ~ Dirichlet(eta)              topic-word dists      [K, V]
+  z_t | theta ~ Cat(theta_{d_t});  w_t | z ~ Cat(phi_{z_t})
+
+The corpus is the variadic dataview's flat layout (words [T], doc_ids [T],
+mask [T]); word and doc ids are int64 here, torch's index type. Every count
+table is a scatter-add over the token axis into a preallocated table with
+one scratch slot that masked tokens go to (`torch.bincount` would read its
+input's maximum back to the host). Counts are float32, exact up to 2^24 a
+slot. Samplers:
+
+  - `collapsed_sweep`: direct-assignment collapsed Gibbs given beta, a
+    Python loop over tokens with a [K]-vectorized predictive
+    (n_dk^-t + alpha*beta_k)(n_kw^-t + eta)/(n_k^-t + V*eta). The token's
+    doc and word come from a host copy of the corpus made once a sweep,
+    so no token step waits for the device.
+  - `blocked_sweep` and `blocked_sweep_dense`: draw phi | z, theta | z,
+    then reassign every token at once (Gumbel-argmax over log theta +
+    log phi) and rebuild the counts; the dense form takes a doc-major
+    [D, L] corpus and works through it `doc_chunk` docs at a time.
+
+`sample_beta` resamples the global weights from Chinese-restaurant-table
+counts m_dk = sum_i Bernoulli(a/(a+i)), one [D, K] batch a value of i;
+`sample_concentrations` reuses one such draw for alpha, gamma and beta.
+Every sampler takes an explicit `torch.Generator` on the state's device.
+The JAX package's sharded sweeps are not ported here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from common_tpu_torch import validator
+from common_tpu_torch.rng import beta as beta_draw
+from common_tpu_torch.rng import standard_gamma, uniform_open
+
+NOISE_TOKENS = 4096  # tokens whose Gumbel noise the collapsed sweep draws in one call
+
+
+class TokenData(NamedTuple):
+    """Flat corpus: word id, doc id, validity per token slot."""
+
+    words: torch.Tensor    # [T] int64
+    doc_ids: torch.Tensor  # [T] int64 (== D for padding slots)
+    mask: torch.Tensor     # [T] float32 0/1
+
+
+def token_data(view) -> TokenData:
+    """From a variadic_dataview (or anything with tokens/doc_ids/token_mask)."""
+    return TokenData(
+        torch.as_tensor(view.tokens).long(),
+        torch.as_tensor(view.doc_ids).long(),
+        torch.as_tensor(view.token_mask).float(),
+    )
+
+
+@dataclass(frozen=True)
+class HDPState:
+    """Truncated-HDP latent state (counts are derived but carried)."""
+
+    z: torch.Tensor            # [T] int32 topic per token
+    beta: torch.Tensor         # [K+1] global weights (last = remainder)
+    doc_topic: torch.Tensor    # [D, K]
+    topic_word: torch.Tensor   # [K, V]
+    topic_total: torch.Tensor  # [K]
+    hypers: Dict[str, torch.Tensor]  # alpha, gamma, eta
+
+    @property
+    def n_topics(self) -> int:
+        return self.topic_word.shape[0]
+
+    @property
+    def n_docs(self) -> int:
+        return self.doc_topic.shape[0]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.topic_word.shape[1]
+
+    def active_topics(self) -> torch.Tensor:
+        return (self.topic_total > 0).sum()
+
+
+def _segment_count(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] float32 occurrences of each index in [0, n); index n is the scratch
+    slot, dropped."""
+    out = torch.zeros(n + 1, dtype=torch.float32, device=flat.device)
+    out.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
+    return out[:n]
+
+
+def _counts(z, data: TokenData, D, K, V):
+    """All three count tables from (z, corpus), masked tokens in no table
+    (and tokens of docs past D in no doc row, as the JAX package drops them)."""
+    valid = data.mask > 0
+    zi = torch.where(valid, z.long(), K)
+    flat_dk = torch.where(valid & (data.doc_ids < D), data.doc_ids * K + zi, D * K)
+    flat_kw = torch.where(valid, zi * V + data.words, K * V)
+    dk = _segment_count(flat_dk, D * K).view(D, K)
+    kw = _segment_count(flat_kw, K * V).view(K, V)
+    return dk, kw, kw.sum(-1)
+
+
+def initialize(view, n_topics: int, vocab_size: int, generator: torch.Generator,
+               alpha: float = 1.0, gamma: float = 1.0, eta: float = 0.1,
+               n_docs: Optional[int] = None) -> HDPState:
+    """Random z and one beta draw (lda's state.initialize analog), on the
+    data's device."""
+    validator.validate_positive(n_topics, "n_topics")
+    validator.validate_positive(vocab_size, "vocab_size")
+    data = view if isinstance(view, TokenData) else token_data(view)
+    D = int(n_docs) if n_docs is not None else int(view.size())
+    dev = data.words.device
+    z = torch.randint(0, n_topics, data.words.shape, generator=generator, device=dev, dtype=torch.int32)
+    dk, kw, kt = _counts(z, data, D, n_topics, vocab_size)
+    scalar = lambda v: torch.tensor(float(v), dtype=torch.float32, device=dev)  # noqa: E731
+    state = HDPState(
+        z=z,
+        beta=torch.full((n_topics + 1,), 1.0 / (n_topics + 1), dtype=torch.float32, device=dev),
+        doc_topic=dk, topic_word=kw, topic_total=kt,
+        hypers={"alpha": scalar(alpha), "gamma": scalar(gamma), "eta": scalar(eta)},
+    )
+    return sample_beta(state, generator)
+
+
+# ---------------------------------------------------------------------------
+# collapsed direct-assignment Gibbs (oracle)
+# ---------------------------------------------------------------------------
+def collapsed_sweep(state: HDPState, data: TokenData, generator: torch.Generator) -> HDPState:
+    """One sequential collapsed sweep over the valid tokens, beta held fixed.
+
+    Masked tokens keep their z and stay out of the counts, as in the JAX
+    package; here they are skipped. About 19 launches a token, none waiting
+    for the device: one read of the corpus's ids and mask a sweep.
+    """
+    K, V = state.n_topics, state.vocab_size
+    dtype = state.doc_topic.dtype
+    ab = state.hypers["alpha"] * state.beta[:K]
+    eta = state.hypers["eta"]
+    denom_off = V * eta
+    z = state.z.clone()
+    dk = state.doc_topic.clone()
+    kwt = state.topic_word.t().contiguous()  # [V, K]: a word's counts are one row
+    kt = state.topic_total.clone()
+    slots = torch.arange(K, device=z.device)
+    tokens = torch.nonzero(data.mask.cpu() > 0).flatten().tolist()
+    words, docs = data.words.cpu().tolist(), data.doc_ids.cpu().tolist()
+    for start in range(0, len(tokens), NOISE_TOKENS):
+        block = tokens[start:start + NOISE_TOKENS]
+        noise = torch.log(-torch.log(uniform_open((len(block), K), generator, dtype)))
+        for j, t in enumerate(block):
+            dk_d, kw_w = dk[docs[t]], kwt[words[t]]
+            old = (slots == z[t]).to(dtype)
+            dk_d -= old
+            kw_w -= old
+            kt -= old
+            p = (dk_d + ab) * (kw_w + eta) / (kt + denom_off)
+            new = torch.argmax(torch.log(p) - noise[j])
+            oh = (slots == new).to(dtype)
+            dk_d += oh
+            kw_w += oh
+            kt += oh
+            z[t] = new
+    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kwt.t().contiguous(), topic_total=kt)
+
+
+# ---------------------------------------------------------------------------
+# beta resampling via CRT table counts
+# ---------------------------------------------------------------------------
+def crt_sample(generator: torch.Generator, counts, conc, max_count: int) -> torch.Tensor:
+    """m ~ CRT(n, a): number of tables from n customers at concentration a.
+
+    m = sum_{i=0}^{n-1} Bernoulli(a / (a + i)), as max_count Bernoulli
+    batches of counts' shape, one at a time (exact; zero counts give zero
+    tables). conc broadcasts against counts.
+    """
+    counts = torch.as_tensor(counts, device=generator.device)
+    conc = torch.as_tensor(conc, device=counts.device)
+    if not conc.is_floating_point():
+        conc = conc.float()
+    m = torch.zeros(counts.shape, dtype=torch.int32, device=counts.device)
+    for i in range(int(max_count)):
+        p = conc / (conc + i)
+        b = torch.rand(counts.shape, generator=generator, device=counts.device, dtype=conc.dtype) < p
+        m += b & (counts > i)
+    return m
+
+
+def _dirichlet(conc: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Dirichlet draws along the last axis, normalised in log space.
+
+    log G(a) = log G(a + 1) + log(U) / a: at concentrations near 1e-12 a
+    plain gamma draw underflows to 0, and a row of zeros (a document with
+    no valid token) would normalise to 0/0. In log space every row sums to
+    1 and its tiny entries come out as exact zeros.
+    """
+    log_g = torch.log(standard_gamma(conc + 1.0, generator))
+    log_g += torch.log(uniform_open(conc.shape, generator, conc.dtype)) / conc
+    return torch.softmax(log_g, dim=-1)
+
+
+def _beta_from_tables(m_k, gamma, generator):
+    """(beta_1..K, beta_rest) ~ Dir(m_1 + 1e-8, ..., m_K + 1e-8, gamma), floored
+    at 1e-12 and renormalised (an exact 0 poisons score_joint)."""
+    beta = _dirichlet(torch.cat([m_k + 1e-8, gamma.reshape(1).to(m_k.dtype)]), generator)
+    beta = beta.clamp(min=1e-12)
+    return beta / beta.sum()
+
+
+def _sample_beta(state: HDPState, generator: torch.Generator, max_count: int) -> HDPState:
+    K = state.n_topics
+    ab = state.hypers["alpha"] * state.beta[:K]
+    m_dk = crt_sample(generator, state.doc_topic, ab[None, :], max_count)
+    m_k = m_dk.sum(0).to(state.beta.dtype)
+    return dataclasses.replace(state, beta=_beta_from_tables(m_k, state.hypers["gamma"], generator))
+
+
+def _max_count(state: HDPState) -> int:
+    return max(int(state.doc_topic.max()), 1)
+
+
+def sample_beta(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None) -> HDPState:
+    """beta | z: CRT table counts per (doc, topic), then Dirichlet.
+
+    (beta_1..K, beta_rest) ~ Dir(m_.1, ..., m_.K, gamma), Teh et al. §5.3.
+    max_count caps the CRT loop; it defaults to the largest doc-topic count,
+    read from the device: pass it in a loop that must not wait.
+    """
+    return _sample_beta(state, generator, _max_count(state) if max_count is None else max_count)
+
+
+# ---------------------------------------------------------------------------
+# concentration resampling (alpha, gamma), Teh et al. 2006 §6 / appendix A
+# ---------------------------------------------------------------------------
+def _sample_concentrations(state: HDPState, generator: torch.Generator, max_count: int,
+                           a_alpha: float, b_alpha: float, a_gamma: float, b_gamma: float) -> HDPState:
+    K = state.n_topics
+    alpha, gamma = state.hypers["alpha"], state.hypers["gamma"]
+    dtype, dev = state.beta.dtype, state.beta.device
+
+    # shared table counts m_dk ~ CRT(n_dk, alpha*beta_k), reused by alpha,
+    # gamma and the beta redraw (the §5.3 joint move)
+    m_dk = crt_sample(generator, state.doc_topic, (alpha * state.beta[:K])[None, :], max_count)
+    m_k = m_dk.sum(0).to(dtype)
+    m_tot = m_k.sum()
+
+    # alpha | m, n (auxiliary-variable Gibbs, Teh appendix A):
+    # w_d ~ Beta(alpha+1, n_d); s_d ~ Bernoulli(n_d / (n_d + alpha));
+    # alpha ~ Gamma(a + m.. - sum s_d, b - sum log w_d); empty docs drop out
+    n_d = state.doc_topic.sum(-1).to(dtype)
+    has = n_d > 0
+    n_safe = n_d.clamp(min=1.0)
+    w = beta_draw(torch.broadcast_to(alpha + 1.0, n_safe.shape).contiguous(), n_safe, generator)
+    s = torch.rand(n_d.shape, generator=generator, device=dev, dtype=dtype) < n_d / (n_d + alpha)
+    sum_log_w = torch.where(has, torch.log(w.clamp(min=1e-30)), 0.0).sum()
+    sum_s = (has & s).sum().to(dtype)
+    new_alpha = standard_gamma(a_alpha + m_tot - sum_s, generator) / (b_alpha - sum_log_w)
+
+    # gamma | m (Escobar-West 1995 on the top-level restaurant: m.. customers
+    # seated at K+ dishes)
+    kplus = (m_k > 0).sum().to(dtype).clamp(min=1.0)
+    m_safe = m_tot.clamp(min=1.0)
+    eta = beta_draw(gamma + 1.0, m_safe, generator)
+    log_eta = torch.log(eta.clamp(min=1e-30))
+    odds = (a_gamma + kplus - 1.0) / (m_safe * (b_gamma - log_eta))
+    pick_high = torch.rand((), generator=generator, device=dev, dtype=dtype) < odds / (1.0 + odds)
+    shape = torch.where(pick_high, a_gamma + kplus, a_gamma + kplus - 1.0)
+    new_gamma = standard_gamma(shape, generator) / (b_gamma - log_eta)
+
+    hypers = dict(state.hypers)
+    hypers["alpha"] = new_alpha.to(alpha.dtype)
+    hypers["gamma"] = new_gamma.to(gamma.dtype)
+    return dataclasses.replace(state, beta=_beta_from_tables(m_k, new_gamma, generator), hypers=hypers)
+
+
+def sample_concentrations(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None,
+                          a_alpha: float = 1.0, b_alpha: float = 1.0,
+                          a_gamma: float = 1.0, b_gamma: float = 1.0) -> HDPState:
+    """Resample (alpha, gamma, beta) | z under Gamma(a, b) hyperpriors.
+
+    One CRT draw of the table counts m_dk feeds (i) the auxiliary-variable
+    alpha move over docs, (ii) an Escobar-West gamma move over the top-level
+    restaurant (m.. customers, K+ dishes), and (iii) the Dirichlet beta
+    redraw. max_count as in `sample_beta`.
+    """
+    return _sample_concentrations(
+        state, generator, _max_count(state) if max_count is None else max_count,
+        float(a_alpha), float(b_alpha), float(a_gamma), float(b_gamma))
+
+
+# ---------------------------------------------------------------------------
+# blocked (uncollapsed) sweeps, the parallel path
+# ---------------------------------------------------------------------------
+def _draw_phi_theta(state: HDPState, generator: torch.Generator):
+    """phi | z [K, V] and theta | z [D, K]; theta is D Dirichlet draws of K
+    gammas each (torch's gamma sampler, normalised in log space)."""
+    K = state.n_topics
+    phi = _dirichlet(state.topic_word + state.hypers["eta"], generator)
+    theta = _dirichlet(state.doc_topic + state.hypers["alpha"] * state.beta[:K][None, :], generator)
+    return phi, theta
+
+
+def _log_clipped(p: torch.Tensor) -> torch.Tensor:
+    return torch.log(p.clamp(min=1e-30))
+
+
+def _perturbed_argmax(logp: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """argmax over the last axis of logp plus Gumbel noise; logp is consumed
+    (the noise is added in place, so a [T, K] table costs two, not four)."""
+    u = uniform_open(logp.shape, generator, logp.dtype)
+    logp -= u.log_().neg_().log_()  # + Gumbel = - log(-log U)
+    return torch.argmax(logp, dim=-1).to(torch.int32)
+
+
+def blocked_sweep(state: HDPState, data: TokenData, generator: torch.Generator,
+                  chunk: Optional[int] = None) -> HDPState:
+    """phi, theta | z, then all tokens reassigned at once.
+
+    chunk: an optional token-block size: the [T, K] score table is then
+    built `chunk` tokens at a time, so peak memory is [chunk, K]. Same
+    sampler either way.
+    """
+    phi, theta = _draw_phi_theta(state, generator)
+    log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K]
+    log_theta = _log_clipped(theta)                 # [D, K]
+    D, T = state.n_docs, data.words.shape[0]
+    docs = data.doc_ids.clamp(max=D - 1)
+    step = T if chunk is None or chunk >= T else int(chunk)
+    z = torch.empty_like(state.z)
+    for a in range(0, T, step):
+        b = min(T, a + step)
+        logp = log_theta[docs[a:b]]
+        logp += log_phi_t[data.words[a:b]]
+        z[a:b] = _perturbed_argmax(logp, generator)
+        del logp
+    z = torch.where(data.mask > 0, z, state.z)
+    dk, kw, kt = _counts(z, data, D, state.n_topics, state.vocab_size)
+    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kt)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def densify_corpus(view, max_len: Optional[int] = None):
+    """(words [D, L] int64, mask [D, L] float32) from a ragged variadic_dataview,
+    on the view's device.
+
+    Bridges ragged corpora to the dense doc-major path (`blocked_sweep_dense`):
+    docs pad to L = max(doc length), or to `max_len`, which truncates longer
+    docs (only do that deliberately). One vectorized scatter on the host:
+    token t of doc i lands at flat position i*L + (t - ptr[i]).
+    """
+    ptr = _host(view.row_ptr).astype(np.int64)
+    toks = _host(view.tokens)
+    lens = np.diff(ptr)
+    D = len(lens)
+    L = int(lens.max()) if max_len is None else int(max_len)
+    keep_len = np.minimum(lens, L)
+    mask = (np.arange(L)[None, :] < keep_len[:, None]).astype(np.float32)
+    starts = np.repeat(np.arange(D, dtype=np.int64) * L, lens)
+    dst = np.arange(ptr[-1], dtype=np.int64) + np.repeat(-ptr[:-1], lens) + starts
+    words = np.zeros(D * L, np.int64)
+    keep = dst - starts < L
+    words[dst[keep]] = toks[:ptr[-1]][keep]
+    device = view.tokens.device if torch.is_tensor(view.tokens) else "cpu"
+    return (torch.from_numpy(words.reshape(D, L)).to(device), torch.from_numpy(mask).to(device))
+
+
+def dense_token_data(words, mask=None) -> TokenData:
+    """TokenData from a rectangular doc-major [D, L] corpus (docs padded to
+    equal length; mask 0 = padding), on the words' device. The flat token
+    order is row-major, so a state initialized from this view is
+    layout-compatible with `blocked_sweep_dense`."""
+    words = torch.as_tensor(words).long()
+    D, L = words.shape
+    mask = torch.ones((D, L), device=words.device) if mask is None else torch.as_tensor(mask, device=words.device)
+    doc_ids = torch.arange(D, device=words.device)[:, None].expand(D, L).reshape(-1)
+    return TokenData(words.reshape(-1), doc_ids, mask.float().reshape(-1))
+
+
+def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator,
+                        doc_chunk: Optional[int] = None) -> HDPState:
+    """Rectangular doc-major form of `blocked_sweep`.
+
+    words/mask: [D, L] (docs padded to equal length; the state must have
+    been initialized from `dense_token_data(words, mask)` so `state.z` is
+    row-major-flat). The same sampler, but theta is broadcast per doc
+    instead of gathered per token, and doc_topic is a scatter-add over each
+    doc's L tokens. Peak memory is [doc_chunk, L, K]; doc_chunk=None takes
+    about 2^26 elements (256 MB of float32) a table, the JAX default.
+    """
+    D, L = words.shape
+    K, V = state.n_topics, state.vocab_size
+    phi, theta = _draw_phi_theta(state, generator)
+    log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K], a word's scores one row
+    log_theta = _log_clipped(theta)                 # [D, K]
+    step = min(D, max(1024, (1 << 26) // max(L * K, 1)) if doc_chunk is None else int(doc_chunk))
+    valid = mask > 0
+    z_old = state.z.view(D, L)
+    z = torch.empty_like(z_old)
+    dk = torch.empty((D, K), dtype=torch.float32, device=z.device)
+    for a in range(0, D, step):
+        b = min(D, a + step)
+        logp = log_phi_t[words[a:b]]                 # [dc, L, K]
+        logp += log_theta[a:b, None, :]
+        zc = torch.where(valid[a:b], _perturbed_argmax(logp, generator), z_old[a:b])
+        del logp
+        z[a:b] = zc
+        zi = torch.where(valid[a:b], zc.long(), K)   # masked -> the scratch column
+        counts = torch.zeros((b - a, K + 1), dtype=torch.float32, device=z.device)
+        counts.scatter_add_(1, zi, torch.ones(zi.shape, dtype=torch.float32, device=z.device))
+        dk[a:b] = counts[:, :K]
+    z = z.reshape(-1)
+    flat_kw = torch.where(valid.reshape(-1), z.long() * V + words.reshape(-1), K * V)
+    kw = _segment_count(flat_kw, K * V).view(K, V)
+    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
+
+
+# ---------------------------------------------------------------------------
+# scoring / diagnostics
+# ---------------------------------------------------------------------------
+def score_joint(state: HDPState) -> torch.Tensor:
+    """log p(z, w | beta, hypers): Dirichlet-multinomial in both blocks.
+
+    sum_d log DM(n_d. | alpha*beta) + sum_k log DM(n_k. | eta 1_V), the
+    joint-score trace (the reference's score_assignment + score_data).
+    """
+    K, V = state.n_topics, state.vocab_size
+    alpha, eta = state.hypers["alpha"], state.hypers["eta"]
+    ab = alpha * state.beta[:K]
+    dk = state.doc_topic
+    a0 = ab.sum()
+    doc_term = (torch.lgamma(a0) - torch.lgamma(a0 + dk.sum(-1))
+                + (torch.lgamma(dk + ab[None, :]) - torch.lgamma(ab)[None, :]).sum(-1)).sum()
+    kw = state.topic_word
+    word_term = (torch.lgamma(V * eta) - torch.lgamma(V * eta + state.topic_total)
+                 + (torch.lgamma(kw + eta) - torch.lgamma(eta)).sum(-1)).sum()
+    return doc_term + word_term
+
+
+def perplexity(state: HDPState, data: TokenData) -> torch.Tensor:
+    """exp(-mean predictive log-lik per token) under posterior-mean phi/theta."""
+    K = state.n_topics
+    eta, alpha = state.hypers["eta"], state.hypers["alpha"]
+    phi_t = ((state.topic_word + eta) / (state.topic_total + state.vocab_size * eta)[:, None]).t()
+    conc = state.doc_topic + alpha * state.beta[:K][None, :]
+    theta = conc / conc.sum(-1, keepdim=True)
+    docs = data.doc_ids.clamp(max=state.n_docs - 1)
+    p = (theta[docs] * phi_t[data.words]).sum(-1)
+    ll = (torch.log(p.clamp(min=1e-30)) * data.mask).sum()
+    return torch.exp(-ll / data.mask.sum().clamp(min=1.0))

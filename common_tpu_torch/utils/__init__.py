@@ -1,1 +1,2 @@
-"""Utilities (port of `common_tpu/utils/`): MCMC diagnostics."""
+"""Utilities (port of `common_tpu/utils/`): MCMC diagnostics, numeric
+helpers, tracing and timing."""

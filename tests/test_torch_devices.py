@@ -1,8 +1,10 @@
 """The port's entry points put their tensors on the card unless the caller
 names another device, and never carry on on the CPU without being asked.
 
-`rng`, `numpy_dataview`, `state_from_numpy`, `io.deserialize`, `io.load`
-and the hyper validators default to `device="cuda"`: with a card their
+`rng`, `numpy_dataview`, `variadic_dataview`, `state_from_numpy`,
+`hdp_from_numpy`, `lda_from_numpy`, `io.deserialize`, `io.load`, the hyper
+validators, `hmc.da_init`, `hmc.welford_init` and `profiling.benchmark`
+default to `device="cuda"`: with a card their
 output lies there; without one they raise, as `torch.Generator("cuda")`
 does. With `device="cpu"` they work anywhere. Each test decides inside its
 body whether a card is present.
@@ -12,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from common_tpu_torch import convert, io, models, rng
+from common_tpu_torch import convert, io, models, rng, topic
 from common_tpu_torch import state as st
-from common_tpu_torch.data import numpy_dataview
+from common_tpu_torch.data import numpy_dataview, variadic_dataview
+from common_tpu_torch.kernels import hmc
+from common_tpu_torch.utils import profiling
 from common_tpu_torch.likelihoods import bbv  # the registered likelihood
 
 torch.set_num_threads(2)
@@ -25,6 +29,18 @@ def _state():
     defn = st.model_definition(12, [models.niw(2)], k_max=4)
     data = ((torch.from_numpy(X), torch.ones(12)),)
     return st.initialize(defn, data, rng(0, "cpu").generator, cluster_hp={"alpha": 1.0})
+
+
+def _hdp_state():
+    data = topic.token_data(variadic_dataview([np.array([0, 1, 1]), np.array([2])], device="cpu"))
+    return topic.initialize(data, 3, 4, rng(0, "cpu").generator, n_docs=2)
+
+
+def _timed_on(**kw):
+    """A tensor on the device `profiling.benchmark` timed on (the card by default)."""
+    out = []
+    profiling.benchmark(lambda: out.append(torch.ones(2, device=kw.get("device", "cuda"))), iters=1, **kw)
+    return out[-1]
 
 
 def _load(tmp_path, **kw):
@@ -45,6 +61,16 @@ ENTRY_POINTS = {
     "canonical_hyper": lambda tmp, **kw: models.niw(2).canonical_hyper(**kw)["mu0"],
     "validate_hyper": lambda tmp, **kw: bbv.validate_hyper(
         {"alpha": np.ones(3), "beta": np.ones(3)}, **kw)["alpha"],
+    "hmc.da_init": lambda tmp, **kw: hmc.da_init(0.1, **kw).log_eps,
+    "hmc.welford_init": lambda tmp, **kw: hmc.welford_init(3, **kw).mean,
+    "variadic_dataview": lambda tmp, **kw: variadic_dataview([np.arange(3), np.arange(2)], **kw).tokens,
+    "hdp_from_numpy": lambda tmp, **kw: convert.hdp_from_numpy(
+        convert.hdp_to_numpy(_hdp_state()), **kw).doc_topic,
+    "lda_from_numpy": lambda tmp, **kw: convert.lda_from_numpy(
+        {"lam": np.ones((2, 4), np.float32), "alpha": np.ones(2, np.float32),
+         "eta": np.float32(0.1)}, **kw).lam,
+    "io.deserialize(HDPState)": lambda tmp, **kw: io.deserialize(io.serialize(_hdp_state()), **kw)[0].z,
+    "profiling.benchmark": lambda tmp, **kw: _timed_on(**kw),
 }
 
 
@@ -66,3 +92,12 @@ def test_state_follows_the_data_device():
     assert s.assignments.device.type == "cpu"
     assert all(v.device.type == "cpu" for h in s.hypers for v in h.values())
     assert all(v.device.type == "cpu" for f in s.stats for v in f.values())
+
+
+def test_topic_states_follow_their_inputs():
+    """`topic.initialize` follows the corpus's device and `topic.svi.init`
+    the generator's, whatever the entry points' default."""
+    s = _hdp_state()
+    assert all(t.device.type == "cpu" for t in (s.z, s.beta, s.doc_topic, s.topic_word, *s.hypers.values()))
+    post = topic.svi.init(2, 5, rng(1, "cpu").generator)
+    assert all(t.device.type == "cpu" for t in (post.lam, post.alpha, post.eta))

@@ -133,10 +133,10 @@ def test_dual_averaging_and_welford_sequences_match_jax():
     JAX's values."""
     r = np.random.default_rng(2)
     acc, xs = r.uniform(size=40), r.normal(size=(40, 3))
-    wf = hmc.welford_init(3, dtype=torch.float64)
+    wf = hmc.welford_init(3, dtype=torch.float64, device="cpu")
     with jax.enable_x64(True):
         jda, jwf = jhmc.da_init(0.3), jhmc.welford_init(3, jnp.float64)
-        for got, want in zip(hmc.da_init(0.3), jda):
+        for got, want in zip(hmc.da_init(0.3, device="cpu"), jda):
             np.testing.assert_allclose(float(got), float(want), rtol=1e-7)
         jda = jhmc.DAState(*(jnp.asarray(v, jnp.float64) for v in jda))
         da = hmc.DAState(*(torch.tensor(np.asarray(v)) for v in jda))

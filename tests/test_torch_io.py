@@ -8,6 +8,7 @@ each assert.
 
 import dataclasses
 import json
+from io import BytesIO
 
 import jax
 import jax.numpy as jnp
@@ -314,3 +315,110 @@ def test_repad_matches_jax():
     assert st.repad(s, 4) is s
     with pytest.raises(ValueError, match="new_k_max"):
         st.repad(s, 2)
+
+
+# ---------------------------------------------------------------------------
+# the topic states and the variational posterior: blobs cross both ways
+# ---------------------------------------------------------------------------
+def _np_tree(v):
+    """A JAX state's field as convert's numpy layout (dicts, tuples, arrays)."""
+    if isinstance(v, dict):
+        return {k: _np_tree(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return tuple(_np_tree(x) for x in v)
+    return v if isinstance(v, (str, bool)) else np.asarray(v)
+
+
+def _assert_tree_equal(a, b, path="state"):
+    """Equal structure, and every array equal in dtype, shape and value."""
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and a.keys() == b.keys(), path
+        for k in b:
+            _assert_tree_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(b, tuple):
+        assert isinstance(a, tuple) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_equal(x, y, f"{path}.{i}")
+    elif isinstance(b, (str, bool)):
+        assert a == b, path
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def _jax_topic_states():
+    """One state of each type the port gained a checkpoint for, made by the JAX package."""
+    from common_tpu.data.variadic import variadic_dataview as j_variadic
+    from common_tpu import topic as jtopic
+    from common_tpu.kernels import svi as jsvi
+
+    r = np.random.default_rng(9)
+    rows = [r.integers(0, 7, size=int(n)) for n in r.integers(1, 6, size=5)]
+    jview = j_variadic(rows, pad_to=30)
+    hdp_state = jtopic.initialize(jview, 4, 7, jax.random.key(1), alpha=0.9)
+    lda_post, _ = jtopic.svi.fit_cavi(jtopic.svi.init(3, 7, jax.random.key(2)),
+                                      jtopic.svi.doc_term_matrix(jview, 7, 5), n_iters=2)
+    n = 10
+    jdata = ((jnp.asarray(r.normal(size=(n, 2)), jnp.float32), jnp.ones(n)),
+             (jnp.asarray(r.integers(0, 2, n)), jnp.ones(n)))
+    svi_post = jsvi.init(jst.model_definition(n, [jmodels.niw(2), jmodels.bb], k_max=5), jdata,
+                         jax.random.key(3), cluster_hp={"alpha": 1.2})
+    return {"HDPState": (hdp_state, convert.hdp_to_numpy), "LDAPosterior": (lda_post, convert.lda_to_numpy),
+            "SVIPosterior": (svi_post, convert.svi_to_numpy)}
+
+
+@pytest.mark.parametrize("tname", ["HDPState", "LDAPosterior", "SVIPosterior"])
+def test_topic_and_svi_blobs_cross_both_ways(tname):
+    """A blob written by `common_tpu.io.serialize` loads in the port with every
+    leaf equal (dtype and value); the port's blob loads in the JAX package
+    the same way; and a port round trip keeps the generator in `extra`."""
+    jstate, to_numpy = _jax_topic_states()[tname]
+    want = {f.name: _np_tree(getattr(jstate, f.name)) for f in dataclasses.fields(jstate)}
+    state, extra = io.deserialize(jio.serialize(jstate, extra={"iter": jnp.asarray(5)}), device="cpu")
+    assert type(state).__name__ == tname and int(extra["iter"]) == 5
+    _assert_tree_equal(to_numpy(state), want)
+    back, _ = jio.deserialize(io.serialize(state))
+    assert type(back).__name__ == tname
+    _assert_tree_equal({f.name: _np_tree(getattr(back, f.name)) for f in dataclasses.fields(back)}, want)
+    g = rng(4, "cpu").generator
+    again, extra = io.deserialize(io.serialize(state, extra={"gen": g}), device="cpu")
+    _assert_tree_equal(to_numpy(again), want)
+    assert torch.equal(torch.rand(3, generator=extra["gen"]), torch.rand(3, generator=g))
+
+
+def test_an_irm_state_is_still_refused():
+    """IRMState waits for the IRM port: a blob of one is refused by name."""
+    js = jst.initialize(jst.model_definition(6, [jmodels.bb], k_max=3),
+                        ((jnp.asarray([0, 1, 1, 0, 1, 1]), jnp.ones(6)),), jax.random.key(0))
+    with np.load(BytesIO(jio.serialize(js))) as z:
+        arrays = dict(z)
+    meta = json.loads(bytes(arrays["__meta__"].tobytes()).decode())
+    arrays["__meta__"] = np.frombuffer(json.dumps({**meta, "type": "IRMState"}).encode(), dtype=np.uint8)
+    out = BytesIO()
+    np.savez(out, **arrays)
+    with pytest.raises(ValueError, match="checkpoint state type"):
+        io.deserialize(out.getvalue(), device="cpu")
+
+
+def test_collapsed_hdp_resume_is_bit_exact():
+    """Four [assign, concentrations] iterations of the collapsed HDP sampler
+    == two, a checkpoint with the generator, two more: z, the counts, beta,
+    the hypers and the score trace equal bit for bit."""
+    from common_tpu_torch import topic
+    from common_tpu_torch.data import variadic_dataview
+
+    r = np.random.default_rng(10)
+    rows = [r.integers(0, 8, size=int(n)) for n in r.integers(3, 9, size=6)]
+    data = topic.token_data(variadic_dataview(rows, pad_to=50, device="cpu"))
+    s0 = topic.initialize(data, 5, 8, rng(0, "cpu").generator, n_docs=6)
+    config = [("assign", {}), ("concentrations", {})]
+    straight, trace = run_chain(s0, data, rng(3, "cpu").generator, 4, config)
+    g = rng(3, "cpu").generator
+    half, t1 = run_chain(s0, data, g, 2, config)
+    restored, extra = io.deserialize(io.serialize(half, extra={"gen": g}), device="cpu")
+    resumed, t2 = run_chain(restored, data, extra["gen"], 2, config)
+    _assert_tree_equal(convert.hdp_to_numpy(resumed), convert.hdp_to_numpy(straight))
+    for k in ("score", "assignments", "counts"):
+        assert torch.equal(trace[k], torch.cat([t1[k], t2[k]])), k
+    assert not torch.equal(straight.z, s0.z)

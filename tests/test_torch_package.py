@@ -37,6 +37,9 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.kernels.splitmerge, common_tpu_torch.kernels.annealing\n"
         "import common_tpu_torch.kernels.hmc, common_tpu_torch.kernels.svi\n"
         "import common_tpu_torch.likelihoods.expfam\n"
+        "import common_tpu_torch.topic, common_tpu_torch.topic.hdp, common_tpu_torch.topic.svi\n"
+        "import common_tpu_torch.data.variadic, common_tpu_torch.utils.util\n"
+        "import common_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
