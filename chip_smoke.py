@@ -135,6 +135,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    of itself), the first step on 2,000 docs within rtol 1e-4 of float64 on
    the CPU, 200 SVI steps at batch 1024 lowering the held-out perplexity of
    docs 100,000-101,999 below init's.
+11. The IRM (run after phase 10, before phase 6), at the JAX record's width
+   (BENCH_NOTES.md:448-453): (a) a fully observed 4096 x 4096 Beta-Bernoulli
+   relation (16,777,216 cells) in 8 x 8 planted blocks of 512 (0.85 on the
+   diagonal, 0.1 off it, three off-diagonal blocks at 0.6; numpy seed 0),
+   K_max=32 in both domains, alpha=1; the runner's [assign_blocked] for 30
+   sweeps from each of 6 starts uniform over the 32 slots. Checks finite
+   scores, no kernel launched, the best-scoring chain's co-assignment
+   agreement with the planted labels above 0.95 in both domains, counts
+   summing to N_d, the n stats to the 16.8M cells, counts and stats equal to
+   a rebuild, one runner step under `set_sync_debug_mode("error")`; prints
+   each chain's sweeps/s and agreement, cells/s, peak memory, the ms of a
+   sweep's theta draw, each domain's table and argmax and the restat, the
+   idle share of a traced sweep, and the same 30 sweeps from a CRP start
+   (no bar). (b) A blocked sweep on a 512 x 512 self-relation with 8 planted
+   blocks (the sequential-given-theta path), 10 sweeps: ms a sweep, the
+   agreement, the bookkeeping; and examples/irm_links.py's recipe (30 x 30,
+   15% held out) through [assign, ew_domain_alpha] x 25 from 6 CRP starts:
+   the best-scoring chain's held-out link accuracy at least 0.95 (the JAX
+   example's CPU run: 1.000), one collapsed sweep under the sync check, its
+   launches an entity and idle share. (c) A checkpoint of the collapsed
+   runner's state after 1 iteration, resumed for 1 more, equal bit for bit
+   to 2 straight.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -208,6 +230,18 @@ JAX_PPL10 = 2887.67  # BENCH_r05.json summary.hdp: a TPU run with threefry draws
 # first LDA10 training docs of (a)'s corpus (docs cut, not width), docs LDA10.. + HELD_LDA10 held out
 DOCS10C, LEN10C, V10C, K10C, MORE10C, TRACE_DOCS10C = 200, 30, 30, 10, 3, 20
 LDA10, HELD_LDA10, CAVI10, CHECK_DOCS10, SVI10, BATCH10 = 100_000, 2_000, 10, 2_000, 200, 1024
+# phase 11, the IRM at the JAX record's width (BENCH_NOTES.md:448-453): a fully observed bipartite
+# N11 x N11 Beta-Bernoulli relation in BLOCKS11 x BLOCKS11 planted blocks, K_max K11 in both domains,
+# SWEEPS11 blocked sweeps of the runner from each of FULL_CHAINS11 starts uniform over the K11 slots;
+# the best-scoring chain must recover the blocks. Blocked Gibbs cannot split a cluster that holds two
+# planted blocks, and one chain in three keeps such a merge (see PERF.md); from a CRP start most do,
+# in both packages: one such chain runs too, with no bar
+N11, BLOCKS11, K11, SWEEPS11, FULL_CHAINS11 = 4096, 8, 32, 30, 6
+SELF11, SELF_SWEEPS11 = 512, 10  # (b) a blocked self-relation: the sequential-given-theta path at size
+# (b) examples/irm_links.py's recipe through [assign, ew_domain_alpha] from LINK_CHAINS11 CRP starts: the
+# best-scoring chain must predict the held-out links to LINK_BAR11 (the JAX example's CPU run: 1.000 of
+# 147 cells; from one start collapsed Gibbs may stay in one or two clusters, in both packages)
+LINK_N11, LINK_ITERS11, LINK_CHAINS11, LINK_BAR11 = 30, 25, 6, 0.95
 # generator seeds of phase 6's CRP initial state and of its sweeps (see PERF.md:
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
@@ -2158,6 +2192,292 @@ def phase_hdp(dev=None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the IRM
+# ---------------------------------------------------------------------------
+def irm_blocks(n: int, blocks: int, seed: int):
+    """A planted n x n Beta-Bernoulli relation from numpy `seed`: blocks x
+    blocks equal blocks, 0.85 on the diagonal and 0.1 off it, three
+    off-diagonal blocks at 0.6 (as tests/test_irm.py:183-188 at 60 x 60).
+    Returns the relation and the planted labels of its rows (and columns)."""
+    r = np.random.default_rng(seed)
+    eta = np.full((blocks, blocks), 0.1)
+    np.fill_diagonal(eta, 0.85)
+    off = [(i, j) for i in range(blocks) for j in range(blocks) if i != j]
+    for k in r.choice(len(off), 3, replace=False):
+        eta[off[k]] = 0.6
+    z = np.repeat(np.arange(blocks), n // blocks)
+    return (r.random((n, n)) < eta[z][:, z]).astype(np.float32), z
+
+
+def agreement(z, zt) -> float:
+    """Co-assignment agreement of one assignment with the planted labels (on the card)."""
+    return ((z[:, None] == z[None, :]) == (zt[:, None] == zt[None, :])).double().mean().item()
+
+
+def require_irm_bookkeeping(s, views, what: str) -> None:
+    """Counts sum to N_d; each relation's n stats sum to its observed cells;
+    counts and stats equal a rebuild from the assignments (bb's stats hold
+    integers, exact in float32 to 2^24)."""
+    import torch
+
+    from common_tpu_torch.relational import kernels as irm_kernels
+
+    rebuilt = irm_kernels.restat(s, views)
+    for d, (z, c) in enumerate(zip(s.assignments, s.counts)):
+        require(int(c.sum()) == z.shape[-1], f"{what}: domain {d}'s counts do not sum to N_d")
+        require(torch.equal(c, rebuilt.counts[d]), f"{what}: domain {d}'s counts are not a count of z")
+    for r, view in enumerate(views):
+        cells, n = int(view.mask.sum().item()), s.suffstats[r]["n"].double().sum().item()
+        require(n == cells, f"{what}: relation {r}'s n stats sum to {n}, not its {cells} cells")
+        for k, v in s.suffstats[r].items():
+            require(torch.equal(v, rebuilt.suffstats[r][k]), f"{what}: relation {r}'s {k} differs from a rebuild")
+    log(f"{what}: counts sum to N_d; n stats sum to the observed cells; counts and stats equal a rebuild")
+
+
+def _irm_full_width(dev) -> dict:
+    """(a): the runner's blocked sweep on the N11 x N11 relation, FULL_CHAINS11 starts."""
+    import torch
+
+    from common_tpu_torch import models, rng
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+    from common_tpu_torch.kernels.blocked import stick_break_log_weights
+    from common_tpu_torch.relational import kernels as irm_kernels
+    from common_tpu_torch.rng import gumbel_argmax
+    from common_tpu_torch.runner import make_step, IRM_FAMILY, runner
+
+    t0 = time.perf_counter()
+    rel, z_np = irm_blocks(N11, BLOCKS11, SEED)
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, device=dev)])
+    zt = torch.from_numpy(z_np).to(dev)
+    cells = views[0].indices.shape[0]
+    defn = irm.model_definition([N11, N11], [((0, 1), models.bb)], k_max=K11)
+    torch.cuda.synchronize()
+    log(f"IRM relation {N11} x {N11} ({cells} cells, {int(rel.sum())} ones), {BLOCKS11} x {BLOCKS11} planted "
+        f"blocks, K_max={K11} in both domains: set-up {time.perf_counter() - t0:.2f} s")
+    config = [("assign_blocked", {})]
+    _zero_launches()
+    chains = []
+    for c in range(FULL_CHAINS11):
+        r = np.random.default_rng(SEED + 1 + c)
+        start = [r.integers(0, K11, N11).astype(np.int32) for _ in range(2)]
+        s0 = irm.initialize(defn, views, rng(SEED + 20 + c, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2,
+                            domain_assignments=start)
+        gen = rng(SEED + 60 + c, dev).generator
+        run = runner(defn, views, s0, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run(gen, 1)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run.run(gen, SWEEPS11 - 1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        out = run.get_latent()
+        chains.append({"score": float(run.score_trace[-1]), "agreement": [agreement(z, zt) for z in out.assignments],
+                       "k": [int(out.ngroups(d)) for d in range(2)], "first_s": first_s,
+                       "sweeps_per_s": (SWEEPS11 - 1) / run_s, "peak": torch.cuda.max_memory_allocated(),
+                       "run": run})
+        x = chains[-1]
+        log(f"chain {c}: runner [assign_blocked] x {SWEEPS11}, first sweep {first_s:.3f} s, then "
+            f"{x['sweeps_per_s']:.3f} sweeps/s; score_joint {x['score']:.6e}; agreement rows "
+            f"{x['agreement'][0]:.5f}, columns {x['agreement'][1]:.5f}; clusters {x['k']}")
+    best = max(chains, key=lambda x: x["score"])
+    run, s = best["run"], best["run"].get_latent()
+    rates = [x["sweeps_per_s"] for x in chains]
+    scores = run.score_trace
+    agree = best["agreement"]
+    above = sum(min(x["agreement"]) > 0.95 for x in chains)
+    log(f"{np.median(rates):.3f} sweeps/s (median of {FULL_CHAINS11} chains, {min(rates):.3f}-{max(rates):.3f}), "
+        f"{np.median(rates) * cells:.4e} cells/s (the JAX record 0.90 sweeps/s, 1.51e7 cells/s on a TPU, "
+        f"history); peak memory {max(x['peak'] for x in chains) / 2**30:.2f} GiB")
+    log(f"the best-scoring chain's score_joint trace: {scores.tolist()}")
+    log(f"its k_active (both domains) {run.k_active_trace.tolist()}; co-assignment agreement with the planted "
+        f"labels, rows {agree[0]:.5f}, columns {agree[1]:.5f} (bar > 0.95; the JAX record 0.988 on a TPU, "
+        f"history); {above} of {FULL_CHAINS11} chains above the bar in both domains")
+    require(all(np.isfinite(x["run"].score_trace).all() for x in chains), "non-finite IRM score_joint")
+    require(min(agree) > 0.95, f"IRM co-assignment agreement {agree} not above 0.95")
+    launched = _launches()
+    require(not any(launched.values()), f"the IRM launched a hand-written kernel: {launched}")
+    require_irm_bookkeeping(s, views, f"after {SWEEPS11} blocked sweeps")
+
+    # one runner step under the sync check
+    step = make_step(config, views, IRM_FAMILY)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(s, gen)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # where a sweep's time goes
+    thetas = irm_kernels._sample_block_params(s, gen)
+    tables = [irm_kernels._domain_loglik_table(s, views, thetas, d) for d in range(2)]
+    logw = [stick_break_log_weights(gen, s.counts[d], s.cluster_hps[d]["alpha"]) for d in range(2)]
+    sweep_ms = cuda_ms(lambda: irm_kernels.sweep(s, views, gen), 3)
+    theta_ms = cuda_ms(lambda: irm_kernels._sample_block_params(s, gen), 3)
+    table_ms = [cuda_ms(lambda d=d: irm_kernels._domain_loglik_table(s, views, thetas, d), 3) for d in range(2)]
+    argmax_ms = [cuda_ms(lambda d=d: gumbel_argmax(logw[d][None, :] + tables[d], gen), 3) for d in range(2)]
+    restat_ms = cuda_ms(lambda: irm_kernels.restat(s, views), 3)
+    log(f"ms: blocked sweep {sweep_ms:.2f} = theta draw {theta_ms:.3f} + row table {table_ms[0]:.2f} + row "
+        f"argmax {argmax_ms[0]:.3f} + column table {table_ms[1]:.2f} + column argmax {argmax_ms[1]:.3f} + restat "
+        f"{restat_ms:.2f} (+ the rest {sweep_ms - theta_ms - sum(table_ms) - sum(argmax_ms) - restat_ms:.2f}); "
+        f"one runner step under set_sync_debug_mode('error'): no host wait")
+    idle, n_ops = profile_sweep(lambda: irm_kernels.sweep(s, views, gen))
+
+    # the same recipe from a CRP start, for the record (no bar)
+    s_crp = irm.initialize(defn, views, rng(SEED + 22, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2)
+    run_crp = runner(defn, views, s_crp, config)
+    run_crp.run(gen, SWEEPS11)
+    agree_crp = [agreement(z, zt) for z in run_crp.get_latent().assignments]
+    log(f"the same {SWEEPS11} sweeps from a CRP start (no bar): agreement rows {agree_crp[0]:.5f}, columns "
+        f"{agree_crp[1]:.5f}; k_active {run_crp.k_active_trace.tolist()}")
+    return {"cells": cells, "sweeps_per_s": float(np.median(rates)), "sweeps_per_s_chains": rates,
+            "cells_per_s": float(np.median(rates)) * cells, "first_sweep_s": [x["first_s"] for x in chains],
+            "peak_gib": max(x["peak"] for x in chains) / 2**30, "agreement": agree,
+            "agreement_chains": [x["agreement"] for x in chains], "chains_above_bar": above,
+            "agreement_crp_start": agree_crp, "score_trace": scores.tolist(), "sweep_ms": sweep_ms,
+            "theta_ms": theta_ms, "table_ms": table_ms, "argmax_ms": argmax_ms, "restat_ms": restat_ms,
+            "idle_share": idle, "device_ops": n_ops}
+
+
+def _irm_self_relation(dev) -> dict:
+    """(b), second part: blocked sweeps on a SELF11 x SELF11 self-relation,
+    the sequential-given-theta path."""
+    import torch
+
+    from common_tpu_torch import models, rng
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+    from common_tpu_torch.relational import kernels as irm_kernels
+
+    rel, z_np = irm_blocks(SELF11, BLOCKS11, SEED + 2)
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, device=dev)])
+    defn = irm.model_definition([SELF11], [((0, 0), models.bb)], k_max=K11)
+    start = np.random.default_rng(SEED + 3).integers(0, K11, SELF11).astype(np.int32)
+    s = irm.initialize(defn, views, rng(SEED + 23, dev).generator, cluster_hps=[{"alpha": 1.0}],
+                       domain_assignments=[start])
+    gen = rng(SEED + 24, dev).generator
+    s = irm_kernels.sweep(s, views, gen)  # builds the per-entity cell index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SELF_SWEEPS11 - 1):
+        s = irm_kernels.sweep(s, views, gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (SELF_SWEEPS11 - 1)
+    agree = agreement(s.assignments[0], torch.from_numpy(z_np).to(dev))
+    require(np.isfinite(irm.score_joint(s).item()), "non-finite score_joint on the self-relation")
+    require_irm_bookkeeping(s, views, f"self-relation after {SELF_SWEEPS11} blocked sweeps")
+    log(f"blocked sweep of a {SELF11} x {SELF11} self-relation ({BLOCKS11} planted blocks, sequential given "
+        f"theta): {ms:.1f} ms a sweep; agreement after {SELF_SWEEPS11} sweeps {agree:.5f} (no bar); "
+        f"k_active {int(s.ngroups(0))}")
+    return {"sweep_ms": ms, "agreement": agree}
+
+
+def _irm_links(dev) -> dict:
+    """(b): examples/irm_links.py's recipe from LINK_CHAINS11 starts; then
+    (c): a checkpoint round trip of the collapsed runner's state."""
+    import torch
+
+    from common_tpu_torch import io, models, rng
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+    from common_tpu_torch.relational import kernels as irm_kernels
+    from common_tpu_torch.runner import runner
+
+    n = LINK_N11
+    r = np.random.default_rng(3)  # examples/irm_links.py
+    z_true = np.repeat(np.arange(3), n // 3)
+    probs = np.where(z_true[:, None] == z_true[None, :], 0.9, 0.1)
+    rel = (r.random((n, n)) < probs).astype(np.float32)
+    missing = r.random((n, n)) < 0.15
+    defn = irm.model_definition([n], [((0, 0), models.bb)], k_max=8)
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, missing_mask=missing, device=dev)])
+    held = np.argwhere(missing)
+    truth = probs[held[:, 0], held[:, 1]] > 0.5
+    config = [("assign", {}), ("ew_domain_alpha", {})]
+    _zero_launches()
+    chains = []
+    for c in range(LINK_CHAINS11):
+        s0 = irm.initialize(defn, views, rng(SEED + 30 + c, dev).generator, cluster_hps=[{"alpha": 1.0}])
+        run = runner(defn, views, s0, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run.run(rng(SEED + 130 + c, dev).generator, LINK_ITERS11)
+        torch.cuda.synchronize()
+        p = irm.predict_missing(out, 0, held, (0.0, 1.0))
+        acc = float(((p[:, 1] > 0.5).cpu().numpy() == truth).mean())
+        chains.append({"score": float(run.score_trace[-1]), "accuracy": acc, "groups": int(out.ngroups(0)),
+                       "s": time.perf_counter() - t0, "start": s0, "state": out})
+    best = max(chains, key=lambda x: x["score"])
+    log(f"examples/irm_links.py ({n} x {n}, {len(held)} held-out cells), [assign, ew_domain_alpha] x "
+        f"{LINK_ITERS11} from {LINK_CHAINS11} CRP starts: accuracy "
+        f"{[round(x['accuracy'], 4) for x in chains]}, groups {[x['groups'] for x in chains]}, "
+        f"{[round(x['s'], 2) for x in chains]} s a chain; the best-scoring chain: accuracy {best['accuracy']:.4f} "
+        f"(bar >= {LINK_BAR11}; the JAX example's CPU run 1.000)")
+    require(best["accuracy"] >= LINK_BAR11, f"held-out link accuracy {best['accuracy']} under {LINK_BAR11}")
+    require_irm_bookkeeping(best["state"], views, "links")
+    launched = _launches()
+    require(not any(launched.values()), f"the collapsed IRM launched a hand-written kernel: {launched}")
+
+    gen = rng(SEED + 40, dev).generator
+    s = best["state"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        irm_kernels.assign(s, views, gen)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    idle, n_ops = profile_sweep(lambda: irm_kernels.assign(s, views, gen))
+    log(f"one collapsed sweep under set_sync_debug_mode('error'): no host wait, {1e3 * sweep_s:.1f} ms, "
+        f"{n_ops / n:.1f} device kernels and copies an entity, idle share {idle:.3f}")
+
+    # (c) resume: 1 iteration, a checkpoint with the generator, 1 more, against 2 straight
+    s0 = best["start"]
+    g = rng(SEED + 41, dev).generator
+    straight = runner(defn, views, s0, config)
+    straight.run(g, 2)
+    g = rng(SEED + 41, dev).generator
+    first = runner(defn, views, s0, config)
+    first.run(g, 1)
+    blob = io.serialize(first.get_latent(), extra={"gen": g})
+    restored, extra = io.deserialize(blob, device=dev)
+    rest = runner(defn, views, restored, config)
+    last = rest.run(extra["gen"], 1)
+    same = (np.array_equal(np.concatenate([first.assignment_trace, rest.assignment_trace]),
+                           straight.assignment_trace)
+            and np.array_equal(np.concatenate([first.score_trace, rest.score_trace]), straight.score_trace)
+            and torch.equal(last.cluster_hps[0]["alpha"], straight.get_latent().cluster_hps[0]["alpha"]))
+    log(f"collapsed IRM resume after 1 iteration from a {len(blob)}-byte checkpoint: assignments, scores "
+        f"and alpha {'equal' if same else 'DIFFER'} (bit for bit against 2 straight)")
+    require(same, "the resumed collapsed IRM run differs from the uninterrupted one")
+    return {"accuracy": [x["accuracy"] for x in chains], "best_accuracy": best["accuracy"],
+            "groups": [x["groups"] for x in chains], "chain_s": [x["s"] for x in chains],
+            "collapsed_sweep_ms": 1e3 * sweep_s, "launches_per_entity": n_ops / n, "idle_share": idle,
+            "checkpoint_bytes": len(blob)}
+
+
+def phase_irm(dev=None) -> dict:
+    """The IRM (BASELINE's IRM family): the blocked sweep at the JAX record's
+    width, a self-relation, link prediction and a resume. Runs none of the
+    four kernels, as the JAX package's relational/ runs none of the Pallas kernels."""
+    import torch
+
+    dev = torch.device("cuda") if dev is None else dev
+    t_phase = time.perf_counter()
+    rec = {"full_width": _irm_full_width(dev), "self_relation": _irm_self_relation(dev),
+           "links": _irm_links(dev)}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 wall time {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2176,13 +2496,14 @@ def main() -> int:
         config2 = phase_config2()
         config3 = phase_config3()
         hdp_out = phase_hdp()
+        irm_out = phase_irm()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
-                    "collapsed": collapsed, "hdp": hdp_out, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
+                    "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {

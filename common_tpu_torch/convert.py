@@ -15,11 +15,18 @@ is carried the same way, with the fields of `SVIPosterior`:
      "vstats": ({name: array}, ...), "hypers": ({name: array}, ...),
      "cluster_hp": {name: array}, "lik_names": (str, ...), "fixed": bool}
 
-and so are the topic states, `topic.hdp.HDPState` and `topic.svi.LDAPosterior`:
+and so are the topic states, `topic.hdp.HDPState` and `topic.svi.LDAPosterior`,
 
     {"z": [T] int32, "beta": [K+1], "doc_topic": [D, K], "topic_word": [K, V],
      "topic_total": [K], "hypers": {"alpha": (), "gamma": (), "eta": ()}}
     {"lam": [K, V], "alpha": [K], "eta": ()}
+
+and the IRM state, `relational.IRMState` (one entry a domain or a relation):
+
+    {"assignments": ([N_d] int32, ...), "counts": ([K_d] int32, ...),
+     "cluster_hps": ({"alpha": ()}, ...), "suffstats": ({name: [K_a, K_b, ...]}, ...),
+     "hypers": ({name: array}, ...), "lik_names": (str, ...),
+     "rel_domains": ((int, ...), ...)}
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from common_tpu_torch.kernels.svi import SVIPosterior
+from common_tpu_torch.relational.state import IRMState
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.topic.hdp import HDPState
 from common_tpu_torch.topic.svi import LDAPosterior
@@ -63,6 +71,8 @@ def _from_numpy(cls, leaves: Dict[str, Any], device):
     fields = {f.name: _tensors(leaves[f.name], device) for f in dataclasses.fields(cls)}
     if "fixed" in fields:
         fields["fixed"] = bool(leaves["fixed"])
+    if "rel_domains" in fields:
+        fields["rel_domains"] = tuple(tuple(int(d) for d in doms) for doms in leaves["rel_domains"])
     return cls(**fields)
 
 
@@ -109,3 +119,13 @@ def lda_from_numpy(leaves: Dict[str, Any], device="cuda") -> LDAPosterior:
 def lda_to_numpy(post: LDAPosterior) -> Dict[str, Any]:
     """The numpy leaves of a port LDA posterior (the inverse of `lda_from_numpy`)."""
     return _to_numpy(post)
+
+
+def irm_from_numpy(leaves: Dict[str, Any], device="cuda") -> IRMState:
+    """The port's IRM state from numpy leaves, on `device`."""
+    return _from_numpy(IRMState, leaves, device)
+
+
+def irm_to_numpy(state: IRMState) -> Dict[str, Any]:
+    """The numpy leaves of a port IRM state (the inverse of `irm_from_numpy`)."""
+    return _to_numpy(state)

@@ -13,8 +13,9 @@ static fields and the skeleton of `extra`. So a blob written by
 batch axes (stacked chains) ride along, since leaves are saved verbatim.
 
 The port handles `MixtureState`, `SVIPosterior` (kernels/svi.py), `HDPState`
-(topic/hdp.py) and `LDAPosterior` (topic/svi.py), under the JAX package's
-type names and field paths; `IRMState` waits for the IRM port. A state's
+(topic/hdp.py), `LDAPosterior` (topic/svi.py) and `IRMState`
+(relational/state.py), under the JAX package's type names and field paths;
+a blob whose fields are not those of its type is refused. A state's
 tensors are saved in their dtype; an HDP state's word and doc ids are not
 state (they are the corpus). `extra` carries what a bit-exact resume
 needs: a `torch.Generator` is saved through `get_state()` under the kind
@@ -35,18 +36,19 @@ import torch
 from common_tpu_torch import validator
 
 _META_KEY = "__meta__"
-_STATIC = ("lik_names", "fixed")  # the JAX dataclasses' static fields
+_STATIC = ("lik_names", "fixed", "rel_domains")  # the JAX dataclasses' static fields
 
 
 def _state_types() -> Dict[str, type]:
     # late imports: io need not pull in the samplers at import
     from common_tpu_torch.kernels.svi import SVIPosterior
+    from common_tpu_torch.relational.state import IRMState
     from common_tpu_torch.state import MixtureState
     from common_tpu_torch.topic.hdp import HDPState
     from common_tpu_torch.topic.svi import LDAPosterior
 
     return {"MixtureState": MixtureState, "HDPState": HDPState, "SVIPosterior": SVIPosterior,
-            "LDAPosterior": LDAPosterior}
+            "LDAPosterior": LDAPosterior, "IRMState": IRMState}
 
 
 def _flatten_value(v, path: str, arrays: Dict[str, np.ndarray]):
@@ -124,6 +126,11 @@ def deserialize(blob: bytes, device="cuda"):
         validator.validate_one_of(meta["version"], (2,), "checkpoint version")
         types = _state_types()
         validator.validate_one_of(meta["type"], sorted(types), "checkpoint state type")
+        names = {f.name for f in dataclasses.fields(types[meta["type"]])}
+        if set(meta["fields"]) | set(meta["static"]) != names:
+            raise ValueError(
+                f"checkpoint fields {sorted(set(meta['fields']) | set(meta['static']))} are not "
+                f"those of its checkpoint state type {meta['type']}: {sorted(names)}")
         kwargs = {name: _rebuild_value(spec, f"f.{name}", z, device)
                   for name, spec in meta["fields"].items()}
         for name, v in meta["static"].items():

@@ -48,7 +48,7 @@ import torch
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
 from common_tpu_torch.kernels import blocked, gibbs
-from common_tpu_torch.parallel.chains import _TENSOR_FIELDS, _map, stack_states
+from common_tpu_torch.parallel.chains import map_tensors, stack_states
 from common_tpu_torch.rng import gumbel, gumbel_argmax, host_generator
 from common_tpu_torch.state import MixtureState
 
@@ -72,9 +72,7 @@ def systematic_resample(generator: torch.Generator, log_w):
 
 def _gather_particles(particles: MixtureState, idx) -> MixtureState:
     """The particles at indices idx [M] of the stack (a new stack of M)."""
-    fields = {f: _map(lambda ts: ts[0].index_select(0, idx), [getattr(particles, f)])
-              for f in _TENSOR_FIELDS}
-    return dataclasses.replace(particles, **fields)
+    return map_tensors(lambda t: t.index_select(0, idx), particles)
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +206,7 @@ def run(
 def posterior_sample(generator: torch.Generator, result: SMCResult) -> MixtureState:
     """Draw one particle ~ final weights (a posterior partition sample)."""
     i = gumbel_argmax(result.log_w, generator).reshape(1)
-    fields = {f: _map(lambda ts: ts[0].index_select(0, i)[0], [getattr(result.particles, f)])
-              for f in _TENSOR_FIELDS}
-    return dataclasses.replace(result.particles, **fields)
+    return map_tensors(lambda t: t.index_select(0, i)[0], result.particles)
 
 
 def posterior_partition_weights(result: SMCResult):

@@ -1,15 +1,18 @@
 """Chain-stacked states (port of `common_tpu/parallel/chains.py`).
 
 The JAX package makes chains a `vmap` axis of the state pytree. Here a
-chain-stacked `MixtureState` carries a leading axis C on every tensor
-(assignments [C, N], counts [C, K], every stats and hyper leaf [C, ...]);
-its `lik_names` and `fixed` are shared by all chains.
+chain-stacked state carries a leading axis C on every tensor leaf of the
+state dataclass, nested in tuples and dicts as they come (a `MixtureState`'s
+assignments [C, N] and stats leaves [C, K, ...]; an `HDPState`'s z [C, T];
+an `IRMState`'s per-domain assignments [C, N_d] and per-relation suffstats
+[C, K_a, K_b, ...]). Every other value (`lik_names`, `fixed`,
+`rel_domains`) is static: equal in every chain, and shared.
 
   stack_states([s1, s2, ...])  -> chain-stacked state (leading axis C)
   unstack_state(stacked, i)    -> chain i as an unstacked state
   vmap_sweep(sweep_fn)         -> (stacked, data, generator) -> stacked
 
-Initialize each chain on its own (`state.initialize`), then stack.
+Initialize each chain on its own, then stack.
 """
 
 from __future__ import annotations
@@ -18,37 +21,56 @@ import dataclasses
 
 import torch
 
-from common_tpu_torch.state import MixtureState
 
-_TENSOR_FIELDS = ("assignments", "counts", "cluster_hp", "stats", "hypers")
-
-
-def _map(fn, parts):
-    """fn over the tensors of one field of several states: a tensor, a dict or a tuple of dicts."""
+def _stack(parts, path: str):
+    """torch.stack over the tensor leaves of several values of one shape;
+    any other leaf must be equal in all of them, and is kept."""
     first = parts[0]
     if torch.is_tensor(first):
-        return fn(parts)
+        return torch.stack(parts)
     if isinstance(first, dict):
-        return {k: fn([p[k] for p in parts]) for k in first}
-    return tuple(_map(fn, [p[f] for p in parts]) for f in range(len(first)))
+        if any(p.keys() != first.keys() for p in parts):
+            raise ValueError(f"stack_states needs states of one model ({path} keys differ)")
+        return {k: _stack([p[k] for p in parts], f"{path}.{k}") for k in first}
+    if isinstance(first, (tuple, list)):
+        if any(len(p) != len(first) for p in parts):
+            raise ValueError(f"stack_states needs states of one model ({path} lengths differ)")
+        return type(first)(_stack([p[i] for p in parts], f"{path}.{i}") for i in range(len(first)))
+    if any(p != first for p in parts):
+        raise ValueError(f"stack_states needs states of one model ({path} differs)")
+    return first
 
 
-def stack_states(states) -> MixtureState:
-    """List of identically shaped states -> one chain-stacked state."""
+def _map(fn, v):
+    if torch.is_tensor(v):
+        return fn(v)
+    if isinstance(v, dict):
+        return {k: _map(fn, x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_map(fn, x) for x in v)
+    return v
+
+
+def map_tensors(fn, state):
+    """The state with fn applied to every tensor leaf; static values kept."""
+    return dataclasses.replace(state, **{
+        f.name: _map(fn, getattr(state, f.name)) for f in dataclasses.fields(state)})
+
+
+def stack_states(states):
+    """List of identically shaped states of one type -> one chain-stacked state."""
     if not states:
         raise ValueError("stack_states needs at least one state")
     first = states[0]
-    for s in states[1:]:
-        if s.lik_names != first.lik_names or s.fixed != first.fixed:
-            raise ValueError("stack_states needs states of one model (lik_names, fixed)")
-    fields = {f: _map(torch.stack, [getattr(s, f) for s in states]) for f in _TENSOR_FIELDS}
-    return dataclasses.replace(first, **fields)
+    if any(type(s) is not type(first) for s in states):
+        raise ValueError("stack_states needs states of one model (types differ)")
+    return dataclasses.replace(first, **{
+        f.name: _stack([getattr(s, f.name) for s in states], f.name) for f in dataclasses.fields(first)})
 
 
-def unstack_state(stacked: MixtureState, i: int) -> MixtureState:
+def unstack_state(stacked, i: int):
     """Chain i of a chain-stacked state."""
-    fields = {f: _map(lambda ts: ts[0][i], [getattr(stacked, f)]) for f in _TENSOR_FIELDS}
-    return dataclasses.replace(stacked, **fields)
+    return map_tensors(lambda t: t[i], stacked)
 
 
 def vmap_sweep(sweep_fn):
@@ -57,8 +79,10 @@ def vmap_sweep(sweep_fn):
     The data is shared; the chains are swept in turn, each consuming the
     one generator in order.
     """
-    def swept(stacked: MixtureState, data, generator):
-        n_chains = stacked.counts.shape[0]
+    def swept(stacked, data, generator):
+        leaves = []
+        _map(leaves.append, [getattr(stacked, f.name) for f in dataclasses.fields(stacked)])
+        n_chains = leaves[0].shape[0]
         return stack_states([
             sweep_fn(unstack_state(stacked, c), data, generator) for c in range(n_chains)
         ])

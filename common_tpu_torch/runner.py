@@ -1,4 +1,4 @@
-"""Inference runner (port of `common_tpu/runner.py`, mixture and HDP families).
+"""Inference runner (port of `common_tpu/runner.py`: mixture, HDP and IRM families).
 
 Reference analog: the `runner` layer of the reference ecosystem
 (`kernels:microscopes/kernels/runner.py`): takes a model definition, a
@@ -18,9 +18,12 @@ the NUTS kernels, one boolean a leaf and a doubling: see `kernels/hmc.py`).
 
 A state family supplies its kernel registry, joint score, counts,
 assignments, saturation test and default kernel keywords: `MixtureState`
-(`KERNELS` below) and `HDPState` (`HDP_KERNELS`: assign, assign_blocked,
+(`KERNELS` below), `HDPState` (`HDP_KERNELS`: assign, assign_blocked,
 beta, concentrations, with the CRT cap `max_count` worked out once, on the
-host, when the runner is built).
+host, when the runner is built) and `IRMState` (`IRM_KERNELS`: assign, over
+one `domain` or all, assign_blocked, ew_domain_alpha, grid_domain_alpha;
+its data is the relation views, its counts and assignments are those of
+all domains concatenated).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import torch
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
 from common_tpu_torch.kernels import blocked, gibbs, hmc, slice_, splitmerge
+from common_tpu_torch.relational import kernels as irm_kernels
+from common_tpu_torch.relational import state as irm_state
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.topic import hdp
 from common_tpu_torch.utils import diagnostics
@@ -162,6 +167,36 @@ def _hdp_saturated(st) -> torch.Tensor:
     return (st.topic_total > 0).all() & (st.beta[-1] < 1e-3)
 
 
+def _k_irm_assign(state, data, generator, **kw):
+    if "domain" in kw:
+        return irm_kernels.assign(state, data, generator, domain=kw["domain"])
+    return irm_kernels.assign_all(state, data, generator)
+
+
+def _k_irm_blocked(state, data, generator, **kw):
+    return irm_kernels.sweep(state, data, generator)
+
+
+def _k_irm_ew(state, data, generator, **kw):
+    return irm_kernels.domain_alpha_escobar_west(state, generator, kw.get("a", 1.0), kw.get("b", 1.0))
+
+
+def _k_irm_grid(state, data, generator, **kw):
+    return irm_kernels.domain_alpha_grid(state, kw["prior"], kw["grid"], generator)
+
+
+IRM_KERNELS: Dict[str, Callable] = {
+    "assign": _k_irm_assign,  # kw: domain (else every domain in turn)
+    "assign_blocked": _k_irm_blocked,
+    "ew_domain_alpha": _k_irm_ew,  # kw: a, b
+    "grid_domain_alpha": _k_irm_grid,  # kw: prior, grid
+}
+
+
+def _irm_saturated(st) -> torch.Tensor:
+    return torch.stack([(c > 0).all() for c in st.counts]).any()
+
+
 # a family: kernel registry, score_joint, counts, assignments, is_saturated,
 # and the default keywords of its kernels given the data
 MIXTURE_FAMILY = dict(kernels=KERNELS, score_joint=state_mod.score_joint, counts=lambda st: st.counts,
@@ -169,6 +204,9 @@ MIXTURE_FAMILY = dict(kernels=KERNELS, score_joint=state_mod.score_joint, counts
                       default_kw=lambda data: {})
 HDP_FAMILY = dict(kernels=HDP_KERNELS, score_joint=hdp.score_joint, counts=lambda st: st.topic_total,
                   assignments=lambda st: st.z, is_saturated=_hdp_saturated, default_kw=_hdp_default_kw)
+IRM_FAMILY = dict(kernels=IRM_KERNELS, score_joint=irm_state.score_joint, counts=lambda st: torch.cat(st.counts),
+                  assignments=lambda st: torch.cat(st.assignments), is_saturated=_irm_saturated,
+                  default_kw=lambda data: {})
 
 
 def _family_of(state) -> dict:
@@ -176,6 +214,8 @@ def _family_of(state) -> dict:
         return MIXTURE_FAMILY
     if isinstance(state, hdp.HDPState):
         return HDP_FAMILY
+    if isinstance(state, irm_state.IRMState):
+        return IRM_FAMILY
     raise TypeError(f"no runner family for state type {type(state).__name__}")
 
 
@@ -231,8 +271,9 @@ class runner:
     """Reference-parity runner: r = runner(defn, data, state, config);
     r.run(generator, niters). Traces (assignments, joint score, active
     cluster count) are collected per sweep and exposed as host arrays.
-    Drives a MixtureState through `KERNELS` and an HDPState through
-    `HDP_KERNELS` (defn may be None there; data is its `TokenData`).
+    Drives a MixtureState through `KERNELS`, an HDPState through
+    `HDP_KERNELS` (defn may be None there; data is its `TokenData`) and an
+    IRMState through `IRM_KERNELS` (data: its relation views).
 
     jsonl_path: optional per-sweep record, one JSON line per sweep with the
     joint log score, the active-cluster count, the occupancy histogram and,

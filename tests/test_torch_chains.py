@@ -400,3 +400,59 @@ def test_diagnostics_match_jax(shape):
             np.testing.assert_allclose(got[k], v, rtol=1e-4)
     # one chain given as [T]
     np.testing.assert_allclose(float(diagnostics.ess(x[0])), float(jdiag.ess(x[0])), rtol=1e-4)
+
+
+def test_hdp_and_irm_chains_stack_unstack_and_sweep():
+    """Family-generic chains (tests/test_parallel.py's HDP and IRM case):
+    every tensor leaf gains the chain axis, static fields are shared, and
+    vmap_sweep sweeps chain c as the sweep alone would, the generator in turn."""
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch import topic
+    from common_tpu_torch.data import sparse_ndarray_dataview, variadic_dataview
+    from common_tpu_torch.relational import kernels as irm_kernels
+
+    # HDP: 3 chains over one corpus
+    r = np.random.default_rng(0)
+    rows = [r.integers(0, 12, size=15) for _ in range(20)]
+    data = topic.token_data(variadic_dataview(rows, device="cpu"))
+    g = rng(0, "cpu").generator
+    chains = [topic.initialize(data, 4, 12, g, n_docs=20) for _ in range(3)]
+    batched = stack_states(chains)
+    assert batched.z.shape == (3, 300) and batched.hypers["alpha"].shape == (3,)
+    for c in range(3):
+        assert torch.equal(unstack_state(batched, c).topic_word, chains[c].topic_word)
+    g1, g2 = rng(9, "cpu").generator, rng(9, "cpu").generator
+    swept = vmap_sweep(topic.blocked_sweep)
+    for _ in range(3):
+        batched = swept(batched, data, g1)
+        chains = [topic.blocked_sweep(s, data, g2) for s in chains]
+    assert not torch.equal(batched.z[0], batched.z[1])  # chains diverged
+    for c in range(3):
+        back = unstack_state(batched, c)
+        assert torch.equal(back.z, chains[c].z) and float(back.topic_total.sum()) == 300
+
+    # IRM: 2 chains over one self-relation
+    rel = (r.random((8, 8)) < 0.5).astype(np.float32)
+    defn = irm.model_definition([8], [((0, 0), models.bb)], k_max=4)
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, device="cpu")])
+    ichains = [irm.initialize(defn, views, rng(10 + i, "cpu").generator, cluster_hps=[{"alpha": 1.0}])
+               for i in range(2)]
+    ib = stack_states(ichains)
+    assert ib.assignments[0].shape == (2, 8) and ib.suffstats[0]["n"].shape == (2, 4, 4)
+    assert ib.rel_domains == ((0, 0),) and ib.lik_names == ("bb",)
+    g1, g2 = rng(11, "cpu").generator, rng(11, "cpu").generator
+    isweep = vmap_sweep(irm_kernels.sweep)
+    for _ in range(3):
+        ib = isweep(ib, views, g1)
+        ichains = [irm_kernels.sweep(s, views, g2) for s in ichains]
+    np.testing.assert_array_equal(ib.counts[0].sum(-1).numpy(), [8, 8])
+    for c in range(2):
+        back = unstack_state(ib, c)
+        assert torch.equal(back.assignments[0], ichains[c].assignments[0])
+        assert torch.equal(back.suffstats[0]["heads"], ichains[c].suffstats[0]["heads"])
+    other = irm.initialize(irm.model_definition([8], [((0, 0), models.gp)], k_max=4), views,
+                           rng(0, "cpu").generator)
+    with pytest.raises(ValueError, match="one model"):
+        stack_states([ichains[0], other])
+    with pytest.raises(ValueError, match="one model"):
+        stack_states([ichains[0], chains[0]])

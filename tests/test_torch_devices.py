@@ -1,10 +1,11 @@
 """The port's entry points put their tensors on the card unless the caller
 names another device, and never carry on on the CPU without being asked.
 
-`rng`, `numpy_dataview`, `variadic_dataview`, `state_from_numpy`,
-`hdp_from_numpy`, `lda_from_numpy`, `io.deserialize`, `io.load`, the hyper
-validators, `hmc.da_init`, `hmc.welford_init` and `profiling.benchmark`
-default to `device="cuda"`: with a card their
+`rng`, `numpy_dataview`, `variadic_dataview`, `sparse_ndarray_dataview`,
+`state_from_numpy`, `hdp_from_numpy`, `lda_from_numpy`, `irm_from_numpy`,
+`io.deserialize`, `io.load`, the hyper validators, `hmc.da_init`,
+`hmc.welford_init` and `profiling.benchmark` default to `device="cuda"`,
+and so does an IRM state made from a default dataview: with a card their
 output lies there; without one they raise, as `torch.Generator("cuda")`
 does. With `device="cpu"` they work anywhere. Each test decides inside its
 body whether a card is present.
@@ -15,8 +16,9 @@ import pytest
 import torch
 
 from common_tpu_torch import convert, io, models, rng, topic
+from common_tpu_torch import relational as irm
 from common_tpu_torch import state as st
-from common_tpu_torch.data import numpy_dataview, variadic_dataview
+from common_tpu_torch.data import numpy_dataview, sparse_ndarray_dataview, variadic_dataview
 from common_tpu_torch.kernels import hmc
 from common_tpu_torch.utils import profiling
 from common_tpu_torch.likelihoods import bbv  # the registered likelihood
@@ -34,6 +36,13 @@ def _state():
 def _hdp_state():
     data = topic.token_data(variadic_dataview([np.array([0, 1, 1]), np.array([2])], device="cpu"))
     return topic.initialize(data, 3, 4, rng(0, "cpu").generator, n_docs=2)
+
+
+def _irm_state(**kw):
+    """An IRM state over a default (or `device=`) dataview: it lives on the views' device."""
+    rel = np.eye(4, dtype=np.float32)
+    defn = irm.model_definition([4], [((0, 0), models.bb)], k_max=3)
+    return irm.initialize(defn, [sparse_ndarray_dataview(dense=rel, **kw)], rng(0, **kw).generator)
 
 
 def _timed_on(**kw):
@@ -70,6 +79,12 @@ ENTRY_POINTS = {
         {"lam": np.ones((2, 4), np.float32), "alpha": np.ones(2, np.float32),
          "eta": np.float32(0.1)}, **kw).lam,
     "io.deserialize(HDPState)": lambda tmp, **kw: io.deserialize(io.serialize(_hdp_state()), **kw)[0].z,
+    "sparse_ndarray_dataview": lambda tmp, **kw: sparse_ndarray_dataview(dense=np.ones((2, 3)), **kw).indices,
+    "irm.initialize": lambda tmp, **kw: _irm_state(**kw).suffstats[0]["n"],
+    "irm_from_numpy": lambda tmp, **kw: convert.irm_from_numpy(
+        convert.irm_to_numpy(_irm_state(device="cpu")), **kw).counts[0],
+    "io.deserialize(IRMState)": lambda tmp, **kw: io.deserialize(
+        io.serialize(_irm_state(device="cpu")), **kw)[0].assignments[0],
     "profiling.benchmark": lambda tmp, **kw: _timed_on(**kw),
 }
 
@@ -101,3 +116,15 @@ def test_topic_states_follow_their_inputs():
     assert all(t.device.type == "cpu" for t in (s.z, s.beta, s.doc_topic, s.topic_word, *s.hypers.values()))
     post = topic.svi.init(2, 5, rng(1, "cpu").generator)
     assert all(t.device.type == "cpu" for t in (post.lam, post.alpha, post.eta))
+
+
+def test_irm_state_follows_its_views():
+    """`relational.initialize` puts the state where its views lie, and a
+    kernel keeps it there."""
+    s = _irm_state(device="cpu")
+    leaves = [*s.assignments, *s.counts, s.cluster_hps[0]["alpha"], *s.suffstats[0].values(),
+              *s.hypers[0].values()]
+    assert all(t.device.type == "cpu" for t in leaves)
+    views = [sparse_ndarray_dataview(dense=np.eye(4, dtype=np.float32), device="cpu")]
+    out = irm.kernels.assign(s, views, rng(1, "cpu").generator)
+    assert out.suffstats[0]["n"].device.type == "cpu"

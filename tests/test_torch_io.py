@@ -364,11 +364,19 @@ def _jax_topic_states():
              (jnp.asarray(r.integers(0, 2, n)), jnp.ones(n)))
     svi_post = jsvi.init(jst.model_definition(n, [jmodels.niw(2), jmodels.bb], k_max=5), jdata,
                          jax.random.key(3), cluster_hp={"alpha": 1.2})
+    from common_tpu import relational as jirm
+    from common_tpu.data.sparse import sparse_ndarray_dataview as j_sparse
+
+    jviews = [j_sparse(dense=(r.random((4, 5)) < 0.5).astype(np.float32)),
+              j_sparse(dense=r.poisson(2.0, (4, 4)).astype(np.int32), missing_mask=r.random((4, 4)) < 0.3)]
+    irm_state = jirm.initialize(jirm.model_definition([4, 5], [((0, 1), jmodels.bb), ((0, 0), jmodels.gp)],
+                                                      k_max=[3, 2]),
+                                jviews, jax.random.key(4), cluster_hps=[{"alpha": 0.8}, {"alpha": 1.5}])
     return {"HDPState": (hdp_state, convert.hdp_to_numpy), "LDAPosterior": (lda_post, convert.lda_to_numpy),
-            "SVIPosterior": (svi_post, convert.svi_to_numpy)}
+            "SVIPosterior": (svi_post, convert.svi_to_numpy), "IRMState": (irm_state, convert.irm_to_numpy)}
 
 
-@pytest.mark.parametrize("tname", ["HDPState", "LDAPosterior", "SVIPosterior"])
+@pytest.mark.parametrize("tname", ["HDPState", "LDAPosterior", "SVIPosterior", "IRMState"])
 def test_topic_and_svi_blobs_cross_both_ways(tname):
     """A blob written by `common_tpu.io.serialize` loads in the port with every
     leaf equal (dtype and value); the port's blob loads in the JAX package
@@ -388,7 +396,8 @@ def test_topic_and_svi_blobs_cross_both_ways(tname):
 
 
 def test_an_irm_state_is_still_refused():
-    """IRMState waits for the IRM port: a blob of one is refused by name."""
+    """A blob that names IRMState but holds a mixture state's fields is
+    refused, by its type name, before any field is rebuilt."""
     js = jst.initialize(jst.model_definition(6, [jmodels.bb], k_max=3),
                         ((jnp.asarray([0, 1, 1, 0, 1, 1]), jnp.ones(6)),), jax.random.key(0))
     with np.load(BytesIO(jio.serialize(js))) as z:
@@ -422,3 +431,30 @@ def test_collapsed_hdp_resume_is_bit_exact():
     for k in ("score", "assignments", "counts"):
         assert torch.equal(trace[k], torch.cat([t1[k], t2[k]])), k
     assert not torch.equal(straight.z, s0.z)
+
+
+def test_collapsed_irm_resume_is_bit_exact():
+    """Four [assign, ew_domain_alpha] iterations of the collapsed IRM sampler
+    == two, a checkpoint with the generator, two more: the assignments,
+    counts, suffstats, alphas and the score trace equal bit for bit."""
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+
+    r = np.random.default_rng(12)
+    z = np.arange(9) % 2
+    rel = (r.random((9, 9)) < np.where(z[:, None] == z[None, :], 0.9, 0.1)).astype(np.float32)
+    defn = irm.model_definition([9, 9], [((0, 0), models.bb), ((0, 1), models.bb)], k_max=4)
+    views = [sparse_ndarray_dataview(dense=rel, missing_mask=r.random((9, 9)) < 0.2, device="cpu"),
+             sparse_ndarray_dataview(dense=rel.T, device="cpu")]
+    s0 = irm.initialize(defn, views, rng(0, "cpu").generator)
+    config = [("assign", {}), ("ew_domain_alpha", {})]
+    straight, trace = run_chain(s0, views, rng(3, "cpu").generator, 4, config)
+    g = rng(3, "cpu").generator
+    half, t1 = run_chain(s0, views, g, 2, config)
+    restored, extra = io.deserialize(io.serialize(half, extra={"gen": g}), device="cpu")
+    assert restored.rel_domains == ((0, 0), (0, 1)) and restored.lik_names == ("bb", "bb")
+    resumed, t2 = run_chain(restored, views, extra["gen"], 2, config)
+    _assert_tree_equal(convert.irm_to_numpy(resumed), convert.irm_to_numpy(straight))
+    for k in ("score", "assignments", "counts"):
+        assert torch.equal(trace[k], torch.cat([t1[k], t2[k]])), k
+    assert not torch.equal(trace["assignments"][0], trace["assignments"][-1])  # the chain moved

@@ -40,6 +40,8 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.topic, common_tpu_torch.topic.hdp, common_tpu_torch.topic.svi\n"
         "import common_tpu_torch.data.variadic, common_tpu_torch.utils.util\n"
         "import common_tpu_torch.utils.profiling\n"
+        "import common_tpu_torch.relational, common_tpu_torch.relational.state\n"
+        "import common_tpu_torch.relational.kernels, common_tpu_torch.data.sparse\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
