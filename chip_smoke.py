@@ -157,6 +157,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    launches an entity and idle share. (c) A checkpoint of the collapsed
    runner's state after 1 iteration, resumed for 1 more, equal bit for bit
    to 2 straight.
+12. The multi-device layer and the CSV loader (run after phase 11, before
+   phase 6), on the main path's 1M x 256 rows (`headline_data()` anew),
+   K_max=64. (a) World size 1 over NCCL: 3 sweeps of
+   `parallel.make_sharded_sweep` equal 3 `sweep_fused` sweeps from the same
+   state and generator bit for bit, with 3 launches each of kernels 1 and 2
+   and no other; kernel 1 over rows [0, N/2) and [N/2, N) with row_offset
+   N/2 equals one launch over all rows outside the fp32 tie band; the
+   sharded and the one-device sweep timed in turns beside phase 3's rate,
+   and the all_reduce alone. (d, world size 1) `smc.run_blocked_sharded`
+   equals `smc.run_blocked` bit for bit (logz, log-weights, assignments,
+   resamples) at phase 7's settings on the first N12 = 262,144 rows (cut
+   from 1M for time), kernel 2 three times a block and no other kernel;
+   the best joint score of 8 blocked sweeps on those rows bounds logz. (b)
+   Two processes sharing the card over gloo (spawned; a plumbing rate, not
+   a multi-card one), on a (1 x 2) and a (2 x 1) mesh, 500,000 rows a rank:
+   each rank's kernel-1 draw with its row_offset against its plain scores
+   plus the noise of its global rows; after 1 + SWEEPS12 sweeps the
+   all-reduced counts and stats and the next sweep's theta bit-identical
+   across the data ranks; the gathered chain's counts and stats within 1e-4 of a plain
+   restat, sweeps/s and the all_reduce alone; then block-SMC with its 16
+   particles over the two ranks: the same logz on both, at least the
+   joint bound minus 1e-4 of it, every row seated, the top particle's
+   bookkeeping, rows/s, resamples, one resample's particle all_gather.
+   (c) With 2 or more cards, (b)'s sweeps over NCCL on min(count, 4) cards;
+   otherwise a line says one card was found. (e) `measure_row_scaling`
+   at shard counts (1, 2), both ranks on the one card over gloo: a
+   plumbing check. (f) `io.load_csv_f32` on a 200,000 x 64 CSV: the
+   native parse equals numpy's; rows/s and MB/s of both on the card
+   machine's host. A failure in any child process fails the run.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -191,6 +220,9 @@ from the 50 MB L2 (`cold_ms`), as the sweep finds it. Phase 5's record
 out in Python from the scores (`noise_work`), and the kernel's times at
 the CRP start, where the clusters lie close together.
 
+A `sharded_launches` line before the `kernels` line gives phase 12's
+launches of kernels 1 and 2 on the sharded sweep and sharded block-SMC.
+
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Needs a CUDA card: without one it exits 1.
 """
@@ -198,6 +230,8 @@ The line before the last is the card's name and power limit; the last is
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -246,6 +280,11 @@ LINK_N11, LINK_ITERS11, LINK_CHAINS11, LINK_BAR11 = 30, 25, 6, 0.95
 # collapsed Gibbs moves one row at a time, and from some starts keeps a planted
 # cluster split in two for tens of sweeps; from this one it recovers all three)
 INIT6, GEN6 = 5, 105
+# phase 12: sharded sweeps timed a turn; block-SMC at phase 7's settings on the first N12 of the
+# main path's rows (cut from 1M for time); blocked sweeps whose best joint bounds its logz; the CSV
+SWEEPS12, N12, JOINT_SWEEPS12 = 3, 262_144, 8
+CSV_ROWS12, CSV_COLS12 = 200_000, 64
+SPAWN_TIMEOUT12 = 300  # seconds before the ranks of (b) or (c) are killed and the run fails
 
 
 # NVIDIA H100 SXM published peaks (data sheet, dense): TF32 on the tensor
@@ -463,7 +502,7 @@ def _seed(value: int, device):
     return torch.tensor([value], dtype=torch.int32, device=device)
 
 
-def exact_check(z, n, perturbed, rtol=3e-5, chunk=1 << 17) -> dict:
+def exact_check(z, n, perturbed, rtol=3e-5, chunk=1 << 17, keep_tie=False) -> dict:
     """A kernel's z against the argmax of `perturbed(a, b)`, the plain scores
     plus the kernel's own Philox noise for rows a .. b-1, row for row.
 
@@ -471,11 +510,13 @@ def exact_check(z, n, perturbed, rtol=3e-5, chunk=1 << 17) -> dict:
     each other is an fp32 tie and may go either way; every other row must
     agree. `shortfall` is max_n (max_k v_nk - v_n,z_n) in nats: how far the
     perturbed score of the kernel's choice lies below the plain maximum.
+    keep_tie adds "tie_mask", the [n] bool tensor of the tie rows.
     """
     import torch
 
     ties = mismatch = 0
     shortfall = 0.0
+    masks = []
     for a in range(0, n, chunk):
         v = perturbed(a, min(n, a + chunk))
         top2, arg = v.topk(2, dim=-1)
@@ -485,17 +526,21 @@ def exact_check(z, n, perturbed, rtol=3e-5, chunk=1 << 17) -> dict:
         mismatch += int(((zc != arg[:, 0]) & ~tie).sum())
         off = top2[:, 0] - v.gather(1, zc[:, None])[:, 0]
         shortfall = max(shortfall, float(off.max()))
+        if keep_tie:
+            masks.append(tie)
     torch.cuda.synchronize()
-    return {"rows": int(n), "ties": ties, "mismatch": mismatch, "shortfall": shortfall}
+    out = {"rows": int(n), "ties": ties, "mismatch": mismatch, "shortfall": shortfall}
+    return {**out, "tie_mask": torch.cat(masks)} if keep_tie else out
 
 
-def assign_exact_check(z, X, mu, binv, base, seed, chain=0) -> dict:
+def assign_exact_check(z, X, mu, binv, base, seed, chain=0, row0=0, keep_tie=False) -> dict:
     """The Gaussian kernel (`philox_scores`), or chain `chain` of the
-    multi-chain one given that chain's slots."""
+    multi-chain one given that chain's slots; X's first row drawn as global
+    row row0 (a shard launched with that row_offset)."""
     from common_tpu_torch.ops.gaussian_assign import philox_scores
 
     return exact_check(z, X.shape[0], lambda a, b: philox_scores(
-        X[a:b], mu, binv, base, seed, row0=a, chain=chain))
+        X[a:b], mu, binv, base, seed, row0=row0 + a, chain=chain), keep_tie=keep_tie)
 
 
 def chains_exact_check(z, X, mu, binv, base, seed, n_chains) -> dict:
@@ -731,7 +776,7 @@ def phase_kernels() -> dict:
 # phase 3
 # ---------------------------------------------------------------------------
 def headline_data():
-    """The 1M x 256 rows of phases 3 and 4, 4096 held-out rows, and the NIW hypers.
+    """The 1M x 256 rows of phases 3, 4 and 12, 4096 held-out rows, and the NIW hypers.
 
     8 planted centers at scale 4 plus unit noise (bench.py make_data_device),
     hypers mu0 = 0, kappa = 1, psi = I, nu = D + 2 (bench.py:270-275).
@@ -2478,6 +2523,385 @@ def phase_irm(dev=None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the (chains x data) mesh, the sharded sweep, sharded block-SMC,
+# the scaling harness and the CSV loader
+# ---------------------------------------------------------------------------
+def _same_state(a, b) -> bool:
+    """Assignments, counts and every stats leaf equal bit for bit."""
+    import torch
+
+    return (torch.equal(a.assignments, b.assignments) and torch.equal(a.counts, b.counts)
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a.stats, b.stats) for k in x))
+
+
+def _sharded_sweep_check(mesh, world: int, headline, what: str) -> dict:
+    """One chain per chain row over the mesh's shards of the main path's
+    rows, N // world rows a rank: the first sweep's kernel-1
+    draw against its plain scores plus the noise of its global rows, then
+    SWEEPS12 timed sweeps; the all-reduced counts and stats and the next
+    sweep's theta bit-identical across the data ranks; the gathered chain's
+    bookkeeping against a plain restat on all rows."""
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch import models, state as st
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.parallel import mesh as mesh_mod
+    from common_tpu_torch.parallel import sharded, stack_states, unstack_state
+
+    (x, mask), = headline["data"]
+    n = (N // world) * mesh.data  # every rank holds N // world rows
+    data = ((x[:n], mask[:n]),)
+    defn = st.model_definition(n, [models.niw(D)], k_max=K_MAX)
+    gen0 = torch.Generator(device=mesh.device).manual_seed(SEED + 12 + mesh.chain_index)
+    s0 = st.initialize(defn, data, gen0, cluster_hp={"alpha": 1.0}, feature_hps=[headline["hyper"]])
+    # the mesh's chain stack, where this rank's chain is its own start (the others it never keeps)
+    states, local = mesh_mod.shard_state(mesh, stack_states([s0] * mesh.chains), data)
+    del s0
+    sweep = sharded.make_sharded_sweep(mesh, states, local)
+    gens = sharded.chain_generators(mesh, SEED + 120, mesh.chains)
+    r0 = mesh.data_index * local[0][0].shape[0]
+
+    # the first sweep's own kernel inputs, from a copy of the chain's generator
+    probe = torch.Generator(device=mesh.device)
+    probe.set_state(gens[0].get_state())
+    mu, binv, base, _ = blocked.fused_assign_inputs(unstack_state(states, 0), local, probe)
+    seed = blocked._device_seed(probe, mesh.device)
+    _zero_launches()
+    states = sweep(states, local, gens)
+    launched = _launches()
+    check = require_exact(assign_exact_check(states.assignments[0], local[0][0], mu, binv, base, seed, row0=r0),
+                          f"{what}: kernel 1 on rows {r0}..{r0 + local[0][0].shape[0]} with row_offset {r0}")
+    require(launched["fused_gaussian_assign"] == 1 and launched["fused_scatter_stats"] == 1,
+            f"{what}: launches {launched} in one sweep of one chain")
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SWEEPS12):
+        states = sweep(states, local, gens)
+    torch.cuda.synchronize()
+    dist.barrier()
+    sweep_s = (time.perf_counter() - t0) / SWEEPS12
+
+    # after 1 + SWEEPS12 all_reduces: the reduced counts and stats, and the next
+    # sweep's theta drawn from them by each rank's own generator, bit-identical
+    # across the chain's data ranks (the no-broadcast design rests on this)
+    s = unstack_state(states, 0)
+    reduced = torch.cat([s.counts.reshape(-1).to(torch.float32)] + [v.reshape(-1) for v in s.stats[0].values()])
+    reduced_all = mesh_mod.all_gather_cat(reduced[None], mesh.data_group)
+    same_stats = bool(torch.equal(reduced_all, reduced_all[:1].expand_as(reduced_all)))
+    require(same_stats, f"{what}: the all-reduced counts and stats differ across the data ranks")
+    probe.set_state(gens[0].get_state())
+    mu, binv, base, _ = blocked.fused_assign_inputs(s, local, probe)
+    theta = torch.cat([mu.reshape(-1), binv.reshape(-1), base.reshape(-1)])
+    theta_all = mesh_mod.all_gather_cat(theta[None], mesh.data_group)
+    same_theta = bool(torch.equal(theta_all, theta_all[:1].expand_as(theta_all)))
+    require(same_theta, f"{what}: theta after {1 + SWEEPS12} sweeps differs across the data ranks")
+    del reduced, reduced_all, theta, theta_all, mu, binv, base
+
+    # the collective alone: the chain's counts and stats, as the sweep reduces them
+    payload = [s.counts] + list(s.stats[0].values())
+    ar = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_mod.all_reduce_sum(payload, mesh.data_group)
+        torch.cuda.synchronize()
+        ar.append(1e3 * (time.perf_counter() - t0))
+    nbytes = sum(t.numel() * t.element_size() for t in payload)
+    full = sharded.gather_chain(mesh, states, 0)
+    errs = require_bookkeeping(full, data, f"{what}: chain {mesh.chain_index} gathered", K_MAX)
+    return {"sweep_ms": 1e3 * sweep_s, "sweeps_per_s": 1.0 / sweep_s, "all_reduce_ms": float(np.median(ar)),
+            "all_reduce_bytes": nbytes, "kernel1_check": check, "theta_identical": same_theta,
+            "stats_identical": same_stats,
+            "stats_err": errs, "rows_a_rank": local[0][0].shape[0], "launches_one_sweep": launched}
+
+
+def _sharded_smc_check(mesh, headline, joint: float) -> dict:
+    """run_blocked_sharded at phase 7's settings on the first N12 rows."""
+    import torch
+
+    from common_tpu_torch import models, state as st
+    from common_tpu_torch.kernels import smc
+    from common_tpu_torch.parallel import mesh as mesh_mod, unstack_state
+    from common_tpu_torch.parallel.chains import map_tensors
+
+    (x, mask), = headline["data"]
+    data = ((x[:N12], mask[:N12]),)
+    defn = st.model_definition(N12, [models.niw(D)], k_max=K_MAX)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 127)
+    parts = smc.init_particles(defn, data, gen, P7, cluster_hp={"alpha": 1.0}, feature_hps=[headline["hyper"]])
+    parts, sdata = smc.shard_particles(mesh, parts, data)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smc.run_blocked_sharded(mesh, parts, sdata, gen, block=BLOCK7, warmup=WARMUP7, rejuvenation_blocks=REJUV7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launches()
+    p = res.particles
+    require(p.counts.sum(-1).tolist() == [N12] * p.counts.shape[0], "sharded SMC: a particle does not seat every row")
+    top = int(torch.argmax(res.log_w))
+    errs = require_bookkeeping(unstack_state(p, top), data, f"sharded SMC rank {mesh.rank} top particle", K_MAX)
+    logz = float(res.logz)
+    require(np.isfinite(logz) and logz >= joint - SLACK7 * abs(joint), f"sharded SMC: logz {logz} below {joint}")
+    # one resample's particle exchange alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    map_tensors(lambda t: mesh_mod.all_gather_cat(t, mesh.data_group), p)
+    torch.cuda.synchronize()
+    gather_ms = 1e3 * (time.perf_counter() - t0)
+    return {"wall_s": wall, "rows_per_s": N12 / wall, "logz": logz, "n_resamples": res.n_resamples,
+            "steps": len(res.ess_trace), "launches": launched, "stats_err": errs,
+            "particle_gather_ms": gather_ms}
+
+
+def _phase12_rank(rank, world, store, out, backend, joint):
+    """A rank of (b)/(c): a (1 x W) and a (W x 1) mesh over the main path's
+    rows, then (b) also block-SMC's particles sharded over the W ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch.parallel import mesh as mesh_mod
+    from common_tpu_torch.kernels import smc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    if rank:  # rank 0 speaks for the ranks; a failure on any rank raises in the parent
+        sys.stdout = open(os.devnull, "w")
+    mesh_mod.init_distributed(backend, init_method=f"file://{store}", world_size=world, rank=rank)
+    torch.cuda.set_device(torch.device(device))
+    headline = headline_data()
+    rec = {}
+    for shape in ((1, world), (world, 1)):
+        mesh = mesh_mod.make_mesh(*shape, backend=backend, device=device if backend == "gloo" else None)
+        rec[f"{shape[0]}x{shape[1]}"] = _sharded_sweep_check(mesh, world, headline,
+                                                             f"{backend} {shape[0]}x{shape[1]} rank {rank}")
+    if backend == "gloo":
+        rec["smc"] = _sharded_smc_check(smc.make_particle_mesh(backend, device=device), headline, joint)
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, backend: str, joint: float, tmp: str) -> list:
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    out = os.path.join(tmp, f"p12_{backend}")
+    mesh_mod.spawn(_phase12_rank, (world, os.path.join(tmp, f"store_{backend}"), out, backend, joint), world,
+                   timeout_s=SPAWN_TIMEOUT12)
+    recs = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def phase_sharded(main_path: dict) -> dict:
+    """Phase 12: the mesh layer on the card (see the module docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.io import loader
+    from common_tpu_torch.kernels import blocked, smc
+    from common_tpu_torch.ops import gaussian_assign as ga
+    from common_tpu_torch.parallel import mesh as mesh_mod
+    from common_tpu_torch.parallel import measure_row_scaling, sharded, stack_states, unstack_state
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    rec = {}
+    headline = headline_data()
+    data, hyper = headline["data"], headline["hyper"]
+    x, mask = data[0]
+    dev = torch.device("cuda")
+
+    # (a) world size 1 over NCCL, the main path's rows
+    mesh_mod.init_distributed("nccl", init_method=f"file://{tmp}/store_a", world_size=1, rank=0)
+    mesh = mesh_mod.make_mesh(1, 1, backend="nccl")
+    defn = st.model_definition(N, [models.niw(D)], k_max=K_MAX)
+    s0 = st.initialize(defn, data, rng(SEED + 12, dev).generator, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+    states, local = mesh_mod.shard_state(mesh, stack_states([s0]), data)
+    sweep = sharded.make_sharded_sweep(mesh, states, local)
+    g_sh, g_one = rng(SEED + 120, dev).generator, rng(SEED + 120, dev).generator
+    _zero_launches()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        states = sweep(states, local, [g_sh])
+    torch.cuda.synchronize()
+    launched = _launches()
+    one = s0
+    for _ in range(3):
+        one = blocked.sweep_fused(one, data, g_one)
+    equal = _same_state(unstack_state(states, 0), one)
+    log(f"(a) nccl, world size 1, {N}x{D}, K_max={K_MAX}: 3 sharded sweeps equal 3 sweep_fused sweeps bit for bit: "
+        f"{equal}; launches {launched}")
+    require(equal, "world size 1: the sharded sweep differs from sweep_fused")
+    require(launched["fused_gaussian_assign"] == 3 and launched["fused_scatter_stats"] == 3
+            and sum(launched.values()) == 6, f"world size 1: launches {launched} != 3 of kernels 1 and 2")
+    rec["launches_ws1"] = launched
+    # kernel 1 over two row shards with their offsets against one launch over all rows
+    mu, binv, base, _ = blocked.fused_assign_inputs(one, data, rng(SEED + 121, dev).generator)
+    seed = torch.tensor([12], dtype=torch.int32, device=dev)
+    whole = ga.fused_gaussian_assign(x, mu, binv, base, seed)
+    half = N // 2
+    shards = torch.cat([ga.fused_gaussian_assign(x[:half], mu, binv, base, seed),
+                        ga.fused_gaussian_assign(x[half:], mu, binv, base, seed, row_offset=half)])
+    check = assign_exact_check(shards, x, mu, binv, base, seed, keep_tie=True)
+    tie = check.pop("tie_mask")
+    require_exact(check, "(a) kernel 1, two row shards")
+    differ = int((shards != whole).sum())
+    differ_out = int((shards != whole)[~tie].sum())
+    log(f"(a) kernel 1 over rows [0, {half}) and [{half}, {N}) with row_offset {half}: {differ} rows differ "
+        f"from one launch over all rows, {differ_out} of them outside the fp32 tie band ({check['ties']} tie rows)")
+    require(differ_out == 0, "kernel 1's row shards differ from one launch outside the tie band")
+    rec["shards_vs_whole_rows_differ"] = differ
+    del tie
+    times = {"sweep_fused": [], "sharded": []}
+    for name in ("sweep_fused", "sharded", "sharded", "sweep_fused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SWEEPS12):
+            if name == "sharded":
+                states = sweep(states, local, [g_sh])
+            else:
+                one = blocked.sweep_fused(one, data, g_one)
+        torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - t0) / SWEEPS12)
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    leaves = [one.counts] + list(one.stats[0].values())
+    ar_ms = cuda_ms(lambda: mesh_mod.all_reduce_sum(leaves, mesh.data_group), 5)
+    log(f"(a) in turns, {SWEEPS12} sweeps each: sweep_fused {ms['sweep_fused']:.2f} ms, sharded {ms['sharded']:.2f} ms "
+        f"a sweep ({1e3 / ms['sharded']:.3f} sweeps/s; phase 3's runner {main_path['sweeps_per_s']:.3f} sweeps/s, "
+        f"its fused sweep {main_path['fused_sweep_ms']:.2f} ms); the all_reduce of counts and stats "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e6:.1f} MB) alone {ar_ms:.3f} ms")
+    rec["ws1"] = {"sharded_sweep_ms": ms["sharded"], "sweep_fused_ms": ms["sweep_fused"],
+                  "sweeps_per_s": 1e3 / ms["sharded"], "phase3_sweeps_per_s": main_path["sweeps_per_s"],
+                  "all_reduce_ms": ar_ms}
+    del states, local, one, s0, shards, whole
+
+    # (d), world size 1: run_blocked_sharded equals run_blocked; the joint bound of a blocked chain on the rows
+    rows = ((x[:N12], mask[:N12]),)
+    defn12 = st.model_definition(N12, [models.niw(D)], k_max=K_MAX)
+    chain = st.initialize(defn12, rows, rng(SEED + 122, dev).generator, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+    g = rng(SEED + 123, dev).generator
+    joints = []
+    for _ in range(JOINT_SWEEPS12):
+        chain = blocked.sweep_fused(chain, rows, g)
+        joints.append(float(st.score_joint(chain)))
+    joint = max(joints)
+    smc_mesh = smc.make_particle_mesh("nccl")
+    parts = smc.init_particles(defn12, rows, rng(SEED + 127, dev).generator, P7, cluster_hp={"alpha": 1.0},
+                               feature_hps=[hyper])
+    local_p, sdata = smc.shard_particles(smc_mesh, parts, rows)
+    kw = dict(block=BLOCK7, warmup=WARMUP7, rejuvenation_blocks=REJUV7)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = smc.run_blocked_sharded(smc_mesh, local_p, sdata, rng(SEED + 128, dev).generator, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launches()
+    b = smc.run_blocked(parts, rows, rng(SEED + 128, dev).generator, **kw)
+    same = (torch.equal(a.logz, b.logz) and torch.equal(a.log_w, b.log_w)
+            and torch.equal(a.particles.assignments, b.particles.assignments) and a.n_resamples == b.n_resamples)
+    n_blocks = -(-(N12 - WARMUP7) // BLOCK7)
+    log(f"(d) nccl, world size 1, block-SMC P={P7}, block {BLOCK7}, warmup {WARMUP7} on the first {N12} of the "
+        f"main path's rows (cut from {N} for time): run_blocked_sharded equals run_blocked bit for bit: {same}; "
+        f"{wall:.2f} s, {N12 / wall:.1f} rows/s, {a.n_resamples} resamples, logz {float(a.logz):.6e}; best joint of "
+        f"{JOINT_SWEEPS12} blocked sweeps {joint:.6e}; launches {launched}")
+    require(same, "world size 1: run_blocked_sharded differs from run_blocked")
+    require(launched["fused_scatter_stats"] == n_blocks * (1 + 2 * REJUV7) and sum(launched.values())
+            == launched["fused_scatter_stats"], f"sharded SMC launches {launched}")
+    rec["smc_ws1"] = {"wall_s": wall, "rows_per_s": N12 / wall, "logz": float(a.logz),
+                      "n_resamples": a.n_resamples, "best_joint": joint, "launches": launched}
+    del parts, local_p, a, b, chain
+    dist.destroy_process_group()
+    del headline, data, x, mask, rows, sdata
+    torch.cuda.empty_cache()
+
+    # (b) two ranks sharing the one card over gloo (host-staged collectives: a plumbing number)
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(2, "gloo", joint, tmp)
+    log(f"(b) gloo, two processes on one card: {time.perf_counter() - t0:.1f} s with the spawn and each rank's data")
+    for shape in ("1x2", "2x1"):
+        r = recs[0][shape]
+        log(f"(b) {shape}: {r['rows_a_rank']} rows a rank, {r['sweeps_per_s']:.3f} sweeps/s ({r['sweep_ms']:.1f} ms "
+            f"a sweep; two processes on one card over gloo, not a multi-card rate); the all_reduce of "
+            f"{r['all_reduce_bytes'] / 1e6:.1f} MB {r['all_reduce_ms']:.1f} ms; after "
+            f"{1 + SWEEPS12} sweeps, stats and theta identical across data ranks {r['stats_identical']} "
+            f"{r['theta_identical']}")
+    sm = [q["smc"] for q in recs]
+    log(f"(d) gloo, two processes on one card: run_blocked_sharded, {P7 // 2} particles a rank: "
+        f"{sm[0]['wall_s']:.2f} s, {sm[0]['rows_per_s']:.1f} rows/s, {sm[0]['n_resamples']} resamples of "
+        f"{sm[0]['steps']} steps, logz {sm[0]['logz']:.6e} (bar >= {joint:.6e} - {SLACK7} x |joint|); one "
+        f"resample's particle all_gather {sm[0]['particle_gather_ms']:.1f} ms; kernel 2 launches a rank "
+        f"{[q['launches']['fused_scatter_stats'] for q in sm]}")
+    require(sm[0]["logz"] == sm[1]["logz"], "sharded SMC: the ranks' logz differ")
+    rec["gloo_2"] = recs
+
+    # (c) several cards over NCCL
+    count = torch.cuda.device_count()
+    if count >= 2:
+        world = min(count, 4)
+        t0 = time.perf_counter()
+        rec["nccl_cards"] = _spawn_ranks(world, "nccl", joint, tmp)
+        for shape in (f"1x{world}", f"{world}x1"):
+            r = rec["nccl_cards"][0][shape]
+            log(f"(c) nccl over {world} cards, {shape}: {r['sweeps_per_s']:.3f} sweeps/s, all_reduce "
+                f"{r['all_reduce_ms']:.2f} ms")
+        log(f"(c) {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"(c) one card found (torch.cuda.device_count() = {count}): no multi-card NCCL run")
+
+    # (e) the scaling harness, two ranks on one card: a plumbing check
+    t0 = time.perf_counter()
+    scaling = measure_row_scaling(shard_counts=(1, 2), devices=["cuda:0", "cuda:0"], backend="gloo",
+                                  timeout_s=SPAWN_TIMEOUT12)
+    log(f"(e) measure_row_scaling(shard_counts=(1, 2)) at {scaling['n']} x {scaling['d']}, K_max {scaling['k_max']}, "
+        f"one card shared over gloo (a plumbing check, not a scaling claim): throughput {scaling['throughput']} "
+        f"sweeps/s, spread {scaling['spread']}, efficiency {scaling['efficiency']:.3f}, collectives_ok "
+        f"{scaling['collectives_ok']} ({time.perf_counter() - t0:.1f} s)")
+    require(scaling["collectives_ok"], "the scaling harness's collectives failed")
+    rec["scaling"] = {**scaling, "throughput": {str(k): v for k, v in scaling["throughput"].items()},
+                      "spread": {str(k): v for k, v in scaling["spread"].items()}}
+
+    # (f) the CSV loader, on the host of the card's machine
+    r = np.random.default_rng(SEED)
+    rows_np = r.standard_normal((CSV_ROWS12, CSV_COLS12)).astype(np.float32)
+    path = os.path.join(tmp, "rows.csv")
+    np.savetxt(path, rows_np, fmt="%.7g", delimiter=",")
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    loader.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = loader.load_csv_f32_native(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = loader.load_csv_f32_plain(path)
+    plain_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(native, plain)) and native.shape == rows_np.shape
+    log(f"(f) load_csv_f32 of {CSV_ROWS12} x {CSV_COLS12} ({mb:.1f} MB): native {CSV_ROWS12 / native_s:.0f} rows/s, "
+        f"{mb / native_s:.1f} MB/s; numpy {CSV_ROWS12 / plain_s:.0f} rows/s, {mb / plain_s:.1f} MB/s; equal "
+        f"{equal}; g++ build {build_s:.2f} s")
+    require(equal, "the native CSV parse differs from numpy's")
+    rec["loader"] = {"native_rows_per_s": CSV_ROWS12 / native_s, "native_mb_per_s": mb / native_s,
+                     "numpy_rows_per_s": CSV_ROWS12 / plain_s, "numpy_mb_per_s": mb / plain_s, "mb": mb,
+                     "build_s": build_s}
+    shutil.rmtree(tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 wall time {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2497,13 +2921,21 @@ def main() -> int:
         config3 = phase_config3()
         hdp_out = phase_hdp()
         irm_out = phase_irm()
+        sharded_out = phase_sharded(result)
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
-                    "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out, "card": env["card"]}))
+                    "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out,
+                    "sharded": sharded_out, "card": env["card"]}))
+    log(json.dumps({"sharded_launches": {
+        "sweep_world_size_1": sharded_out["launches_ws1"],
+        "sweep_gloo_one_sweep_a_rank": {shape: [r[shape]["launches_one_sweep"] for r in sharded_out["gloo_2"]]
+                                        for shape in ("1x2", "2x1")},
+        "smc_world_size_1": sharded_out["smc_ws1"]["launches"],
+        "smc_gloo_a_rank": [r["smc"]["launches"] for r in sharded_out["gloo_2"]]}}))
     log(json.dumps({"kernels": kernels}))
     log(env["card"])
     print(json.dumps({"ok": True, "device": {

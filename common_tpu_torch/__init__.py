@@ -14,8 +14,15 @@ Module map (each keeps its counterpart's name in `common_tpu`):
   - ops/          the CUDA kernels' wrappers and their plain versions
   - kernels/      blocked.py (sweep, sweep_fused, sweep_chains), slice_.py (hp),
                   hmc.py (NUTS: hp, cluster_hp, theta), svi.py (CAVI, SVI),
-                  gibbs.py, smc.py, splitmerge.py, annealing.py
-  - parallel/     chains.py (stack_states, unstack_state, vmap_sweep)
+                  gibbs.py, smc.py (with its particle-sharded runs), splitmerge.py,
+                  annealing.py
+  - parallel/     chains.py (stack_states, unstack_state, vmap_sweep);
+                  mesh.py (the (chains x data) process mesh over torch.distributed:
+                  init_distributed, make_mesh, shard_state, the collectives);
+                  sharded.py (the data- and chain-sharded blocked sweep, kernels 1
+                  and 2 on each data shard); scaling.py (measure_row_scaling)
+  - io/           checkpoint.py (serialize, deserialize, save, load);
+                  loader.py (load_csv_f32, the C++ parser in native/loader.cpp)
   - utils/        diagnostics.py (ess, split_rhat, summarize_traces)
   - convert.py    (new) state to and from numpy leaves
 

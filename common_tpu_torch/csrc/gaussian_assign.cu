@@ -63,8 +63,10 @@
 // copies.
 //
 // Gumbel noise: Philox4x32-10 keyed on the per-sweep seed with counter
-// (row, k, c), k the slot within chain c, so the draws do not depend on the
-// tiling and chain 0 draws exactly the single-chain kernel's noise. The seed
+// (row_offset + row, k, c), k the slot within chain c, so the draws do not
+// depend on the tiling, chain 0 draws exactly the single-chain kernel's
+// noise, and a shard of rows launched with its first row's index as
+// row_offset draws what a launch over all rows draws for them. The seed
 // is read from device memory, so the host never waits for the device to
 // draw it.
 #include <cuda_runtime.h>
@@ -107,7 +109,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu,
                        const float* __restrict__ binv, const float* __restrict__ base,
                        const int* __restrict__ seed_ptr, int* __restrict__ z, int N, int D,
-                       int K, int C, bool vec) {
+                       int K, int C, int row_offset, bool vec) {
   using namespace tf32x3;
   using Tl = Tiling<kPanel, kStages, kWarpCols>;
   constexpr int kChunk = Tl::kChunk, kNT = Tl::kNT, kBLd = Tl::kBLd, kStageFloats = Tl::kStageFloats;
@@ -289,7 +291,7 @@ gaussian_assign_kernel(const float* __restrict__ X, const float* __restrict__ mu
         const int row = row0 + tid;
         if (row < N) {
           const float lp = base[s] - 0.5f * quad +
-                           philox::gumbel(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(kc),
+                           philox::gumbel(seed, static_cast<uint32_t>(row_offset + row), static_cast<uint32_t>(kc),
                                           static_cast<uint32_t>(c));
           if (lp > best) {
             best = lp;
@@ -321,7 +323,7 @@ int optin_smem() {
 
 template <bool kChains, int kPanel, int kStages, int kWarpCols>
 int launch_tiling(const float* X, const float* mu, const float* binv, const float* base,
-                  const int* seed, int* z, int N, int D, int K, int C, void* stream) {
+                  const int* seed, int* z, int N, int D, int K, int C, int row_offset, void* stream) {
   const auto kernel = gaussian_assign_kernel<kChains, kPanel, kStages, kWarpCols>;
   const size_t bytes = Tiling<kPanel, kStages, kWarpCols>::smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -331,7 +333,7 @@ int launch_tiling(const float* X, const float* mu, const float* binv, const floa
   const bool vec = D % 4 == 0 && (addr(X) | addr(mu) | addr(binv)) % 16 == 0;
   const int blocks = (N + kRows - 1) / kRows;
   kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(X, mu, binv, base, seed, z, N,
-                                                                         D, K, C, vec);
+                                                                         D, K, C, row_offset, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,10 +345,10 @@ using Narrow = Tiling<16, 2, 32>;
 
 template <bool kChains>
 int launch(const float* X, const float* mu, const float* binv, const float* base, const int* seed,
-           int* z, int N, int D, int K, int C, void* stream) {
+           int* z, int N, int D, int K, int C, int row_offset, void* stream) {
   if (Wide::smem_bytes(D) <= static_cast<size_t>(optin_smem()))
-    return launch_tiling<kChains, 32, 2, 64>(X, mu, binv, base, seed, z, N, D, K, C, stream);
-  return launch_tiling<kChains, 16, 2, 32>(X, mu, binv, base, seed, z, N, D, K, C, stream);
+    return launch_tiling<kChains, 32, 2, 64>(X, mu, binv, base, seed, z, N, D, K, C, row_offset, stream);
+  return launch_tiling<kChains, 16, 2, 32>(X, mu, binv, base, seed, z, N, D, K, C, row_offset, stream);
 }
 
 }  // namespace
@@ -362,11 +364,15 @@ int gaussian_assign_max_dim(void) {
 }
 
 // X [N, D], mu [K, D], binv [K, D, D], base [K] float32; seed [1] int32;
-// z [N] int32 output. All on the device, contiguous. Returns the CUDA error
-// code of the launch (0 on success).
+// z [N] int32 output. All on the device, contiguous. row_offset is added to
+// the Philox counter's row word, not to any index: rows of X drawn as rows
+// row_offset .. row_offset + N - 1 of a larger X, so a row shard draws the
+// noise a launch over the whole X draws for those rows. Returns the CUDA
+// error code of the launch (0 on success).
 int gaussian_assign_launch(const float* X, const float* mu, const float* binv, const float* base,
-                           const int* seed, int* z, int N, int D, int K, void* stream) {
-  return launch<false>(X, mu, binv, base, seed, z, N, D, K, 1, stream);
+                           const int* seed, int* z, int N, int D, int K, int row_offset,
+                           void* stream) {
+  return launch<false>(X, mu, binv, base, seed, z, N, D, K, 1, row_offset, stream);
 }
 
 // The multi-chain form: mu [C*K, D], binv [C*K, D, D], base [C*K] chain-major,
@@ -374,7 +380,7 @@ int gaussian_assign_launch(const float* X, const float* mu, const float* binv, c
 int gaussian_assign_chains_launch(const float* X, const float* mu, const float* binv,
                                   const float* base, const int* seed, int* z, int N, int D, int K,
                                   int C, void* stream) {
-  return launch<true>(X, mu, binv, base, seed, z, N, D, K, C, stream);
+  return launch<true>(X, mu, binv, base, seed, z, N, D, K, C, 0, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Serialization / checkpoint-resume (port of `common_tpu/io`)."""
+"""Serialization / checkpoint-resume and bulk text ingest (port of `common_tpu/io`)."""
 
 from common_tpu_torch.io.checkpoint import (  # noqa: F401
     deserialize,
@@ -6,3 +6,4 @@ from common_tpu_torch.io.checkpoint import (  # noqa: F401
     save,
     serialize,
 )
+from common_tpu_torch.io.loader import load_csv_f32  # noqa: F401

@@ -31,9 +31,18 @@ int. Every function takes an explicit `torch.Generator` on the particles'
 device and consumes it in order; the JAX package's `fold_in` key tree is
 not reproduced, so the streams differ by design.
 
-The particle-sharded variants of the JAX package (`run_sharded`,
-`run_blocked_sharded`, `make_particle_mesh`, `shard_particles`) wait for
-the multi-GPU port.
+Particle sharding (`make_particle_mesh`, `shard_particles`, `run_sharded`,
+`run_blocked_sharded`): each process of a `torch.distributed` job advances
+its P / W particles with the same steps as `run` and `run_blocked`
+(kernel 2 on their NIW suffstat rebuilds on the card). At a resampling
+check the [P] log-weights are all-gathered; rank 0 takes the ESS decision
+and draws the parent indices from its generator exactly as the one-device
+run does, and broadcasts both, so every rank resamples alike. Particle
+state moves by an all_gather of every tensor and a local index, as in the
+JAX package. Rank 0 runs on the caller's generator and every other rank on
+one seeded from it and its rank, so ranks given equally seeded generators
+still draw apart; at world size 1 the sharded runs equal the one-device
+runs bit for bit.
 """
 
 from __future__ import annotations
@@ -44,10 +53,12 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch import validator
 from common_tpu_torch.kernels import blocked, gibbs
+from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.parallel.chains import map_tensors, stack_states
 from common_tpu_torch.rng import gumbel, gumbel_argmax, host_generator
 from common_tpu_torch.state import MixtureState
@@ -144,17 +155,51 @@ class SMCResult(NamedTuple):
 ROW_SCAN_CAP = 20_000
 
 
-def _resample_step(parts, log_w, logz, n_res, generator, ess_threshold, log_p):
-    """Resample when ESS < ess_threshold * P (the step's one device read)."""
-    n_p = log_w.shape[-1]
-    ess = float(torch.exp(log_ess(log_w)))
-    if ess < ess_threshold * n_p:
-        idx = systematic_resample(generator, log_w)
-        parts = _gather_particles(parts, idx)
-        logz = logz + torch.logsumexp(log_w, -1) - log_p
+def _resample_step(parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh=None):
+    """Resample when ESS < ess_threshold * P (the step's one device read).
+
+    With a particle mesh, log_w and parts are this rank's P / W particles:
+    the [P] weights are all-gathered, rank 0 decides and draws the [P]
+    parents, and broadcasts [ess, decision, parents] (float64) to the
+    others; each rank then takes its parents from the all-gathered stack.
+    """
+    if mesh is None:
+        n_p = log_w.shape[-1]
+        ess = float(torch.exp(log_ess(log_w)))
+        if ess < ess_threshold * n_p:
+            idx = systematic_resample(generator, log_w)
+            parts = _gather_particles(parts, idx)
+            logz = logz + torch.logsumexp(log_w, -1) - log_p
+            log_w = torch.zeros_like(log_w)
+            n_res += 1
+        return parts, log_w, logz, n_res, ess
+    log_w_all = mesh_mod.all_gather_cat(log_w, mesh.data_group)
+    n_p, p_local = log_w_all.shape[-1], log_w.shape[-1]
+    msg = torch.zeros(n_p + 2, dtype=torch.float64, device=log_w.device)
+    if mesh.data_index == 0:
+        ess = float(torch.exp(log_ess(log_w_all)))
+        msg[0] = ess
+        if ess < ess_threshold * n_p:
+            msg[1] = 1.0
+            msg[2:] = systematic_resample(generator, log_w_all).to(torch.float64)
+    dist.broadcast(msg, src=mesh.rank - mesh.data_index, group=mesh.data_group)
+    ess, resample = msg[:2].tolist()
+    if resample:
+        r0 = mesh.data_index * p_local
+        local_idx = msg[2 + r0:2 + r0 + p_local].to(torch.int64)
+        parts = map_tensors(lambda t: mesh_mod.all_gather_cat(t, mesh.data_group).index_select(0, local_idx),
+                            parts)
+        logz = logz + torch.logsumexp(log_w_all, -1) - log_p
         log_w = torch.zeros_like(log_w)
         n_res += 1
     return parts, log_w, logz, n_res, ess
+
+
+def _final_logz(logz, log_w, log_p, mesh=None):
+    """logz plus the log mean weight of all P particles."""
+    if mesh is not None:
+        log_w = mesh_mod.all_gather_cat(log_w, mesh.data_group)
+    return logz + torch.logsumexp(log_w, -1) - log_p
 
 
 def _start(particles: MixtureState):
@@ -179,7 +224,12 @@ def run(
     whether to resample. Refuses more than ROW_SCAN_CAP rows unless
     allow_large.
     """
-    n_p = particles.counts.shape[0]
+    return _run(particles, data, generator, ess_threshold, rejuvenation_moves, allow_large)
+
+
+def _run(particles, data, generator, ess_threshold, rejuvenation_moves, allow_large, mesh=None):
+    """`run`'s body; with a particle mesh, this rank's particles of `run_sharded`."""
+    n_p = particles.counts.shape[0] * (1 if mesh is None else mesh.data)
     n = particles.assignments.shape[-1]
     if n > ROW_SCAN_CAP and not allow_large:
         raise ValueError(
@@ -195,11 +245,11 @@ def run(
         log_w = log_w + _seat_row(parts, data, eid, float(eid), generator).to(log_w.dtype)
         res_before = n_res
         parts, log_w, logz, n_res, ess = _resample_step(
-            parts, log_w, logz, n_res, generator, ess_threshold, log_p)
+            parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
         ess_trace.append(ess)
         if n_res > res_before and rejuvenation_moves > 0:
             _rejuvenate(parts, data, generator, host, eid, rejuvenation_moves)
-    logz = logz + torch.logsumexp(log_w, -1) - log_p
+    logz = _final_logz(logz, log_w, log_p, mesh)
     return SMCResult(parts, log_w, logz, n_res, torch.tensor(ess_trace, dtype=torch.float64))
 
 
@@ -401,6 +451,13 @@ def run_blocked(
     The returned SMCResult.ess_trace has one entry per warmup row followed
     by one per block (length min(warmup, n) + ceil((n - W) / block)).
     """
+    return _run_blocked(particles, data, generator, block, ess_threshold, rejuvenation_blocks, warmup)
+
+
+def _run_blocked(particles, data, generator, block, ess_threshold, rejuvenation_blocks, warmup,
+                 mesh=None):
+    """`run_blocked`'s body; with a particle mesh, this rank's particles of
+    `run_blocked_sharded`."""
     _check_block_smc_support(particles)
     n_p = particles.counts.shape[0]
     n = particles.assignments.shape[-1]
@@ -412,7 +469,7 @@ def run_blocked(
     pad = torch.full((n_p, n_pad - n), -1, dtype=parts.assignments.dtype, device=parts.device)
     parts = dataclasses.replace(parts, assignments=torch.cat([parts.assignments, pad], 1))
     host = host_generator(generator)
-    log_p = math.log(n_p)
+    log_p = math.log(n_p * (1 if mesh is None else mesh.data))
     n_res, ess_trace = 0, []
 
     def window(off):
@@ -432,7 +489,7 @@ def run_blocked(
     for eid in range(w_rows):
         log_w = log_w + _warmup_row(parts, data_p, eid, generator).to(log_w.dtype)
         parts, log_w, logz, n_res, ess = _resample_step(
-            parts, log_w, logz, n_res, generator, ess_threshold, log_p)
+            parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
         ess_trace.append(ess)
         if rejuvenation_blocks > 0 and w_rows > block and (eid + 1) % block == 0:
             parts = rejuvenate(parts, eid + 1)
@@ -444,11 +501,70 @@ def run_blocked(
         parts.assignments[:, off:off + block] = z_blk
         log_w = log_w + incr.to(log_w.dtype)
         parts, log_w, logz, n_res, ess = _resample_step(
-            parts, log_w, logz, n_res, generator, ess_threshold, log_p)
+            parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
         ess_trace.append(ess)
         if rejuvenation_blocks > 0:
             parts = rejuvenate(parts, off + block)
 
-    logz = logz + torch.logsumexp(log_w, -1) - log_p
+    logz = _final_logz(logz, log_w, log_p, mesh)
     parts = dataclasses.replace(parts, assignments=parts.assignments[:, :n].contiguous())
     return SMCResult(parts, log_w, logz, n_res, torch.tensor(ess_trace, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# particles sharded over the processes of a torch.distributed job
+# ---------------------------------------------------------------------------
+def make_particle_mesh(backend: str, device=None) -> "mesh_mod.Mesh":
+    """A (1 x W) mesh over the W processes of the default group: the
+    particle axis rides the mesh's data axis (`parallel.make_mesh`)."""
+    mesh_mod.init_distributed(backend)
+    return mesh_mod.make_mesh(1, dist.get_world_size(), backend=backend, device=device)
+
+
+def shard_particles(mesh, particles: MixtureState, data):
+    """This rank's P / W particles of a [P] stack, and the data (replicated),
+    on the mesh's device. P must divide over the W ranks."""
+    if mesh.chains != 1:
+        raise ValueError(f"particles shard over a (1 x W) mesh, got {mesh.shape}")
+    p0, p1 = mesh_mod.row_span(mesh, particles.counts.shape[0])
+    local = map_tensors(lambda t: t[p0:p1].to(mesh.device), particles)
+    cols = tuple((x.to(mesh.device), m.to(mesh.device)) for x, m in data)
+    return local, cols
+
+
+def _rank_generator(mesh, generator: torch.Generator) -> torch.Generator:
+    """Rank 0: the caller's generator. Rank r > 0: a generator seeded from one
+    draw of the caller's and r, so equally seeded callers still draw apart."""
+    if mesh.data_index == 0:
+        return generator
+    draw = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    seed = int(np.random.SeedSequence([draw, mesh.data_index]).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def run_sharded(mesh, particles: MixtureState, data, generator: torch.Generator,
+                ess_threshold: float = 0.5, rejuvenation_moves: int = 0,
+                allow_large: bool = False) -> SMCResult:
+    """`run` with the particle axis sharded over `mesh` (collective resampling).
+
+    particles and data from `shard_particles`. Returns this rank's
+    particles and log-weights, and the global logz (equal on every rank).
+    One all_gather of the [P] log-weights and one broadcast a row; an
+    all_gather of the particle state at each resample.
+    """
+    return _run(particles, data, _rank_generator(mesh, generator), ess_threshold, rejuvenation_moves,
+                allow_large, mesh)
+
+
+def run_blocked_sharded(mesh, particles: MixtureState, data, generator: torch.Generator,
+                        block: int = 4096, ess_threshold: float = 0.5,
+                        rejuvenation_blocks: int = 1, warmup: int = 512) -> SMCResult:
+    """`run_blocked` with the particle axis sharded over `mesh`.
+
+    particles and data from `shard_particles`; each rank runs `run_blocked`'s
+    steps on its P / W particles (kernel 2 on its NIW rebuilds on the card)
+    and its own rejuvenation windows. Resampling as `run_sharded`. Returns
+    this rank's particles and log-weights and the global logz.
+    """
+    return _run_blocked(particles, data, _rank_generator(mesh, generator), block, ess_threshold,
+                        rejuvenation_blocks, warmup, mesh)

@@ -56,7 +56,7 @@ def _digest() -> str:
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gaussian_assign_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.gaussian_assign_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.gaussian_assign_launch.restype = ci
     lib.gaussian_assign_max_dim.argtypes = []
     lib.gaussian_assign_max_dim.restype = ci

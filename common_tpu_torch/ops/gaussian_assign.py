@@ -19,8 +19,11 @@ streams each B_k through shared memory in panels, because one B_k at
 D = 256 (256 KB) does not fit a block's 227 KB, and takes any D up to
 `gaussian_assign_max_dim` (384 on an H100); wider rows raise.
 Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
-counter (row, k, c), k the slot within chain c, so the draws do not depend
-on the tiling and chain 0 draws the single-chain stream. The seed is read
+counter (row_offset + row, k, c), k the slot within chain c, so the draws
+do not depend on the tiling, chain 0 draws the single-chain stream, and a
+shard of rows given its first row's global index as `row_offset` draws
+what a launch over all rows draws for them (the data-sharded sweep,
+`parallel/sharded.py`). The seed is read
 from a device int32 tensor, so the host never waits for it. The Pallas
 kernels' tiling arguments (`tile_n`, `k_tile`, `interpret`) and their
 padding of K exist for the TPU's VMEM tiling and have no counterpart here.
@@ -39,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from common_tpu_torch.ops import _build
-from common_tpu_torch.rng import gumbel_argmax
+from common_tpu_torch.rng import gumbel_argmax, gumbel_argmax_rows
 
 
 def gaussian_scores(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
@@ -52,10 +55,15 @@ def gaussian_scores(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
     return torch.stack(cols, dim=-1)
 
 
-def gaussian_assign_plain(X, mu, binv, base, generator: torch.Generator) -> torch.Tensor:
-    """Plain version: the score table, Gumbel noise from `generator`, argmax."""
-    logp = gaussian_scores(X, mu, binv, base)
-    return gumbel_argmax(logp, generator).to(torch.int32)
+def gaussian_assign_plain(X, mu, binv, base, generator: torch.Generator,
+                          row_offset: int = 0) -> torch.Tensor:
+    """Plain version: the score table, Gumbel noise from `generator`, argmax.
+
+    With a row_offset the noise is rows row_offset .. row_offset + N - 1
+    of the [row_offset + N, K] table the generator draws, so a shard of
+    rows draws what a call over all rows draws for them.
+    """
+    return gumbel_argmax_rows(gaussian_scores(X, mu, binv, base), generator, row_offset).to(torch.int32)
 
 
 def gaussian_assign_chains_plain(X, mu, binv, base, n_chains: int,
@@ -174,17 +182,24 @@ def _launch_checks(X, mu, binv, base, seed, what: str):
 
 
 def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
-                          base: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+                          base: torch.Tensor, seed: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
     """Sample z_n ~ Cat(softmax_k(base_k - 1/2 Mahalanobis^2)) for all rows.
+
+    row_offset: the global index of X's first row, when X is a shard of a
+    larger X. It moves the noise, not the rows: the kernel's Philox counter
+    of row n is (row_offset + n, k, 0), so the shard draws the noise that a
+    launch over the whole X draws for those rows.
 
     CUDA: float32 inputs and an int32 seed, contiguous; launches
     `csrc/gaussian_assign.cu`. CPU: `gaussian_assign_plain`, its noise
     drawn from a generator seeded with `seed`. Any other device raises.
     """
     _check(X, mu, binv, base, seed)
+    if row_offset < 0 or row_offset + X.shape[0] > 2**31 - 1:
+        raise ValueError(f"row_offset {row_offset} + {X.shape[0]} rows must lie in [0, 2^31)")
     if X.device.type == "cpu":
         g = torch.Generator().manual_seed(int(seed.reshape(())))
-        return gaussian_assign_plain(X, mu, binv, base, g)
+        return gaussian_assign_plain(X, mu, binv, base, g, row_offset)
     lib = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign")
     N, D = X.shape
     K = mu.shape[0]
@@ -194,7 +209,7 @@ def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
     with torch.cuda.device(X.device):
         err = lib.gaussian_assign_launch(
             X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
-            seed.data_ptr(), z.data_ptr(), N, D, K,
+            seed.data_ptr(), z.data_ptr(), N, D, K, row_offset,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _build.check(err, "gaussian_assign_launch")

@@ -61,6 +61,23 @@ def gumbel_argmax(logits: torch.Tensor, generator: torch.Generator, dim: int = -
     return torch.argmax(logits + g, dim=dim)
 
 
+def gumbel_argmax_rows(logits: torch.Tensor, generator: torch.Generator, row0: int = 0,
+                       n_total: int | None = None) -> torch.Tensor:
+    """`gumbel_argmax` over the last axis of logits [n, K] that are rows
+    row0 .. row0 + n - 1 of an [n_total, K] problem (n_total defaults to
+    row0 + n): the noise is those rows of the [n_total, K] table a call over
+    all rows draws, so a shard of rows draws what the whole call draws for
+    them and leaves the generator where the whole call leaves it. At row0 = 0
+    and n_total = n it is `gumbel_argmax` bit for bit.
+    """
+    n, K = logits.shape
+    n_total = row0 + n if n_total is None else n_total
+    if row0 < 0 or row0 + n > n_total:
+        raise ValueError(f"rows {row0}..{row0 + n} lie outside the {n_total} rows")
+    g = gumbel((n_total, K), generator, logits.dtype)[row0:row0 + n]
+    return torch.argmax(logits + g, dim=-1)
+
+
 def standard_gamma(shape_param: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Gamma(shape_param, 1) draws, elementwise."""
     return torch._standard_gamma(shape_param, generator=generator)

@@ -41,7 +41,7 @@ def build():
     src = ROOT / "_scratch" / "assign_tilings.cu"
     src.parent.mkdir(exist_ok=True)
     cases = "\n".join(
-        f"    case {i}: return launch_tiling<false, {p}, {s}, {w}>(X, mu, binv, base, seed, z, N, D, K, 1, st);"
+        f"    case {i}: return launch_tiling<false, {p}, {s}, {w}>(X, mu, binv, base, seed, z, N, D, K, 1, 0, st);"
         for i, (p, s, w) in enumerate(TILINGS))
     src.write_text(f'''#include "{ROOT / "common_tpu_torch/csrc/gaussian_assign.cu"}"
 extern "C" int tiling_launch(int id, const float* X, const float* mu, const float* binv, const float* base,

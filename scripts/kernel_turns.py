@@ -12,7 +12,8 @@ tree's through the package. At the main path's shape (1M x 256 rows around
 kernel runs in the order earlier, this, this, earlier, and the mean of
 each pair is reported:
 
-- kernel 1, `gaussian_assign_launch`, and kernel 4,
+- kernel 1, `gaussian_assign_launch` (with or without the row_offset
+  argument that later sources take), and kernel 4,
   `gaussian_assign_chains_launch`: the same C entry points in both trees;
   the two trees' draws are compared row for row;
 - kernel 2, the scatter: each tree's kernels alone on rows already sorted
@@ -51,6 +52,7 @@ from linear_variants import FLUSH_BYTES, cold_ms, crp_start, mismatch, problem, 
 
 N, D, K, C = 1_000_000, 256, 64, 4
 N3, D3, K3 = 100_000, 64, 32  # kernel 3: config 2
+OLD_ROW_OFFSET = False  # whether the earlier tree's kernel 1 takes a row_offset (set by build_old)
 
 
 def build_old(csrc: Path):
@@ -62,7 +64,10 @@ def build_old(csrc: Path):
     subprocess.run(cmd, check=True)
     lib = ctypes.CDLL(str(out.resolve()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gaussian_assign_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    global OLD_ROW_OFFSET
+    # kernel 1's C entry point gained its row_offset argument in this tree's sources
+    OLD_ROW_OFFSET = "row_offset" in (csrc / "gaussian_assign.cu").read_text()
+    lib.gaussian_assign_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci] + [ci] * OLD_ROW_OFFSET + [vp]
     lib.gaussian_assign_chains_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.scatter_stats_launch.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
@@ -113,8 +118,9 @@ def main() -> int:
     def old_assign(n_chains):
         z = torch.empty((n_chains, N), dtype=torch.int32, device=dev)
         if n_chains == 1:
-            err = old.gaussian_assign_launch(x.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
-                                             seed.data_ptr(), z.data_ptr(), N, D, K, stream)
+            args = (x.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(), seed.data_ptr(), z.data_ptr(),
+                    N, D, K) + ((0,) if OLD_ROW_OFFSET else ()) + (stream,)
+            err = old.gaussian_assign_launch(*args)
         else:
             err = old.gaussian_assign_chains_launch(x.data_ptr(), mu.data_ptr(), binv.data_ptr(),
                                                     base.data_ptr(), seed.data_ptr(), z.data_ptr(), N, D, K,

@@ -110,6 +110,27 @@ def test_cuda_linear_kernel_matches_plain(cuda_device, n, d, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cut", [1537, 2048])
+def test_cuda_assign_kernel_row_shards_equal_one_launch(cuda_device, cut):
+    """Kernel 1 over rows [0, cut) and [cut, N) with row_offset 0 and cut
+    equals one launch over all N rows, row for row outside the fp32 tie
+    band (the shard moves a row within its 128-row tile when cut is not a
+    multiple of 128); each shard is its plain scores plus the noise of its
+    global rows."""
+    t = _assign_problem(4099, 256, 64, 0.3, 17, cuda_device)
+    X, rest = t[0], t[1:]
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    whole = ga.fused_gaussian_assign(X, *rest, seed)
+    parts = torch.cat([ga.fused_gaussian_assign(X[:cut].contiguous(), *rest, seed, row_offset=0),
+                       ga.fused_gaussian_assign(X[cut:].contiguous(), *rest, seed, row_offset=cut)])
+    v = ga.philox_scores(X, *rest, seed)
+    top2 = v.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 3e-5 * top2[:, 0].abs() + 1e-3
+    assert torch.equal(parts[~tie], whole[~tie])
+    _assert_exact(parts[cut:], ga.philox_scores(X[cut:], *rest, seed, row0=cut))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [4, 203, 256, 384])
 @pytest.mark.parametrize("k", [1, 5, 64])
 def test_cuda_assign_kernel_at_every_tiling(cuda_device, d, k):

@@ -42,6 +42,8 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.utils.profiling\n"
         "import common_tpu_torch.relational, common_tpu_torch.relational.state\n"
         "import common_tpu_torch.relational.kernels, common_tpu_torch.data.sparse\n"
+        "import common_tpu_torch.parallel.mesh, common_tpu_torch.parallel.sharded\n"
+        "import common_tpu_torch.parallel.scaling, common_tpu_torch.io.loader\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
