@@ -186,6 +186,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    plumbing check. (f) `io.load_csv_f32` on a 200,000 x 64 CSV: the
    native parse equals numpy's; rows/s and MB/s of both on the card
    machine's host. A failure in any child process fails the run.
+13. The sharded HDP and IRM sweeps (run after phase 12, before phase 6).
+   (a) World size 1 over NCCL, at full width, each pair in turns (sharded,
+   one-device, one-device, sharded), SWEEPS13 sweeps a turn from one start
+   and generator seed: `topic.make_sharded_sweep_dense` + `sample_beta`
+   with the mesh against `blocked_sweep_dense` + `sample_beta` on phase
+   10's corpus (1M docs x 50 tokens, V = 10,000, K = 32, doc_chunk
+   CHUNK10); `topic.make_sharded_sweep` against `blocked_sweep` on the same
+   corpus flattened (50M tokens, CHUNK13 tokens a table); the IRM's
+   `make_sharded_sweep` against `relational.sweep` on phase 11's 4096 x
+   4096 relation, K_max 32, both sides under
+   `torch.use_deterministic_algorithms(True)` (the table's index_add_ of
+   float logpdfs adds in another order each call on the card by default,
+   which the phase measures first). Each pair equal bit for bit (z, count
+   tables, beta; assignments, counts, suffstats), no kernel launched;
+   prints ms a sweep of both sides, the all_reduce's ms and MB, the peak
+   memory. (b)
+   Two processes sharing the card over gloo (a plumbing rate, not a
+   multi-card one), BSWEEPS13 sweeps of each: the token-sharded sweep with
+   a beta move and the doc-sharded sweep with the mesh's beta and
+   concentration moves on the first D13B docs of the corpus (docs cut, full
+   L, K, V), the cell-sharded IRM sweep on the full relation. Checks the
+   gathered z and a recount equal the all-reduced tables (the IRM's counts
+   and suffstats a rebuild), the replicated leaves bit-identical on both
+   ranks; prints sweeps/s and the all_reduce's ms. (c) With 2 or more
+   cards, (b) over NCCL on min(count, 4) cards; otherwise a line says one
+   card was found.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -229,6 +255,7 @@ The line before the last is the card's name and power limit; the last is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -285,6 +312,10 @@ INIT6, GEN6 = 5, 105
 SWEEPS12, N12, JOINT_SWEEPS12 = 3, 262_144, 8
 CSV_ROWS12, CSV_COLS12 = 200_000, 64
 SPAWN_TIMEOUT12 = 300  # seconds before the ranks of (b) or (c) are killed and the run fails
+# phase 13: the sharded HDP (phase 10's corpus) and IRM (phase 11's relation) sweeps. (a) world size 1
+# over NCCL at full width, SWEEPS13 sweeps a turn, the flat sweep CHUNK13 tokens a table; (b) two gloo
+# ranks on the card, BSWEEPS13 sweeps each, the HDP corpus cut to D13B docs (full L, K, V)
+SWEEPS13, CHUNK13, BSWEEPS13, D13B = 3, 1 << 22, 4, 250_000
 
 
 # NVIDIA H100 SXM published peaks (data sheet, dense): TF32 on the tensor
@@ -2902,6 +2933,364 @@ def phase_sharded(main_path: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded HDP and IRM sweeps
+# ---------------------------------------------------------------------------
+def _hdp_same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("z", "doc_topic", "topic_word", "topic_total", "beta"))
+
+
+def _irm_same(a, b) -> bool:
+    import torch
+
+    return (all(torch.equal(x, y) for x, y in zip(a.assignments + a.counts, b.assignments + b.counts))
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a.suffstats, b.suffstats) for k in x))
+
+
+def _in_turns(what: str, start, sharded_step, one_step, same) -> dict:
+    """sharded, one-device, one-device, sharded, after one untimed step of
+    each: SWEEPS13 steps a turn from `start`, each turn with a generator of
+    one seed; every turn's end equal bit for bit, ms a step of each side."""
+    import torch
+
+    from common_tpu_torch import rng
+
+    ends, ms = {}, {"sharded": [], "one": []}
+    for step in (sharded_step, one_step):  # one untimed step each: allocations, the first collective
+        step(start, rng(SEED + 130, torch.device("cuda")).generator)
+    for name in ("sharded", "one", "one", "sharded"):
+        step = sharded_step if name == "sharded" else one_step
+        gen = rng(SEED + 130, torch.device("cuda")).generator
+        s = start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SWEEPS13):
+            s = step(s, gen)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / SWEEPS13)
+        ends.setdefault(name, []).append(s)
+    equal = all(same(e, ends["sharded"][0]) for e in ends["sharded"] + ends["one"])
+    out = {"equal": equal, "sharded_ms": float(np.mean(ms["sharded"])), "one_device_ms": float(np.mean(ms["one"]))}
+    log(f"(a) {what}: {SWEEPS13} sweeps a turn in 4 turns, sharded and one-device equal bit for bit: {equal}; "
+        f"sharded {out['sharded_ms']:.2f} ms, one-device {out['one_device_ms']:.2f} ms a sweep")
+    require(equal, f"world size 1: {what}: the sharded sweep differs from the one-device sweep")
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True) inside, the caller's setting after."""
+    import torch
+
+    prev, warn = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def _collective(what: str, payload, group) -> dict:
+    """The sweep's all_reduce alone on its payload: ms (CUDA events, NCCL) and MB."""
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    ms = cuda_ms(lambda: mesh_mod.all_reduce_sum(payload, group), 5)
+    mb = sum(t.numel() * t.element_size() for t in payload) / 1e6
+    log(f"(a) {what}: the all_reduce of {mb:.2f} MB alone {ms:.3f} ms")
+    return {"all_reduce_ms": ms, "all_reduce_mb": mb}
+
+
+def _irm_views13(dev):
+    """Phase 11's relation and its views on `dev`."""
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+
+    rel, _ = irm_blocks(N11, BLOCKS11, SEED)
+    return irm.as_views([sparse_ndarray_dataview(dense=rel, device=dev)])
+
+
+def _phase13_ws1(tmp: str) -> dict:
+    """(a): world size 1 over NCCL, the three sharded sweeps against their one-device sweeps."""
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch import models, rng, topic
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.parallel import mesh as mesh_mod
+    from common_tpu_torch.relational import kernels as irm_kernels
+
+    dev = torch.device("cuda")
+    mesh_mod.init_distributed("nccl", init_method=f"file://{tmp}/store_13a", world_size=1, rank=0)
+    mesh = mesh_mod.make_mesh(1, 1, backend="nccl")
+    rec = {}
+    _zero_launches()
+
+    gen = rng(SEED + 10, dev).generator
+    words, mask, _ = hdp_corpus(dev, gen)
+    data = topic.dense_token_data(words, mask)
+    s0 = topic.initialize(data, K10, V10, gen, n_docs=D10)
+
+    torch.cuda.reset_peak_memory_stats()
+    s, w, m = topic.shard_dense_corpus(mesh, s0, words, mask)
+    dense = topic.make_sharded_sweep_dense(mesh, s, w, m)
+    rec["dense"] = _in_turns(
+        f"doc-sharded dense sweep + sample_beta(mesh), {D10} docs x {L10}, K={K10}, V={V10}", s,
+        lambda s, g: topic.sample_beta(dense(s, w, m, g, doc_chunk=CHUNK10), g, max_count=L10, mesh=mesh),
+        lambda s, g: topic.sample_beta(topic.blocked_sweep_dense(s, words, mask, g, doc_chunk=CHUNK10), g,
+                                       max_count=L10), _hdp_same)
+    rec["dense"].update(_collective("doc-sharded sweep (topic_word)", [s0.topic_word], mesh.data_group))
+    rec["dense"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del s, w, m
+
+    torch.cuda.reset_peak_memory_stats()
+    s, d = topic.shard_corpus(mesh, s0, data)
+    flat = topic.make_sharded_sweep(mesh, s, d)
+    rec["tokens"] = _in_turns(
+        f"token-sharded sweep, {D10 * L10} tokens, chunk {CHUNK13}", s,
+        lambda s, g: flat(s, d, g, chunk=CHUNK13),
+        lambda s, g: topic.blocked_sweep(s, data, g, chunk=CHUNK13), _hdp_same)
+    rec["tokens"].update(_collective("token-sharded sweep (doc_topic, topic_word, topic_total)",
+                                     [s0.doc_topic, s0.topic_word, s0.topic_total], mesh.data_group))
+    rec["tokens"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del s, d, s0, data, words, mask
+
+    torch.cuda.reset_peak_memory_stats()
+    views = _irm_views13(dev)
+    defn = irm.model_definition([N11, N11], [((0, 1), models.bb)], k_max=K11)
+    s0 = irm.initialize(defn, views, rng(SEED + 131, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2)
+    local = irm_kernels.shard_cells(mesh, views)
+    sweep = irm_kernels.make_sharded_sweep(mesh, s0, local)
+    # the [N_d, K] table sums float logpdfs with index_add_, whose atomic adds
+    # land in another order each call on the card: two tables of one state and
+    # theta differ, so the one-device sweep is not run-to-run identical. Both
+    # sides run with torch's deterministic index_add_ to be compared bit for bit
+    theta = irm_kernels._sample_block_params(s0, rng(SEED + 133, dev).generator)
+    tables = [irm_kernels._domain_loglik_table(s0, views, theta, 0) for _ in range(2)]
+    drift = (tables[0] - tables[1]).abs().max().item()
+    log(f"(a) the one-device IRM table of domain 0 built twice from one state and theta, index_add_'s default "
+        f"(atomic) order: {int((tables[0] != tables[1]).sum())} of {tables[0].numel()} entries differ, by up "
+        f"to {drift:.3e}; the pair below runs under torch.use_deterministic_algorithms(True)")
+    del theta, tables
+    with _deterministic():
+        rec["irm"] = _in_turns(f"cell-sharded IRM sweep, {N11} x {N11} bb, K_max={K11}, deterministic index_add_",
+                               s0, lambda s, g: sweep(s, local, g), lambda s, g: irm_kernels.sweep(s, views, g),
+                               _irm_same)
+    g = rng(SEED + 134, dev).generator
+    turns = {"sharded": [], "one": []}
+    for name in ("sharded", "one", "one", "sharded"):
+        step = (lambda: sweep(s0, local, g)) if name == "sharded" else (lambda: irm_kernels.sweep(s0, views, g))
+        turns[name].append(cuda_ms(step, SWEEPS13))
+    rec["irm"].update(table_drift=drift, default_sharded_ms=float(np.mean(turns["sharded"])),
+                      default_one_device_ms=float(np.mean(turns["one"])))
+    log(f"(a) the IRM pair in index_add_'s default mode, in turns: sharded {rec['irm']['default_sharded_ms']:.2f} ms, "
+        f"one-device {rec['irm']['default_one_device_ms']:.2f} ms a sweep")
+    table = torch.zeros((N11, K11), device=dev)
+    payload = [table, table] + [t for st_r in s0.suffstats for t in st_r.values()]
+    rec["irm"].update(_collective("IRM sweep (two [N_d, K] tables, then the suffstats)", payload,
+                                  mesh.data_group))
+    rec["irm"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launched = _launches()
+    require(not any(launched.values()), f"phase 13 (a) launched a hand-written kernel: {launched}")
+    for k in ("dense", "tokens", "irm"):
+        log(f"(a) {k}: peak memory {rec[k]['peak_gib']:.2f} GiB")
+    del views, local, s0, sweep, table, payload
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gathered_hdp(mesh, s, dense: bool):
+    """(z of all ranks, doc_topic of all ranks or the replicated one)."""
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    z = mesh_mod.all_gather_cat(s.z, mesh.data_group)
+    return z, mesh_mod.all_gather_cat(s.doc_topic, mesh.data_group) if dense else s.doc_topic
+
+
+def _replicated_identical(mesh, leaves) -> bool:
+    """Every rank holds the same leaves, bit for bit (one all_gather)."""
+    import torch
+
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    flat = torch.cat([t.reshape(-1).to(mesh.device, torch.float64) for t in leaves])
+    every = mesh_mod.all_gather_cat(flat[None], mesh.data_group)
+    return bool(torch.equal(every, every[:1].expand_as(every)))
+
+
+def _timed_sweeps(step, s, n: int):
+    import torch
+    import torch.distributed as dist
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        s = step(s)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return s, (time.perf_counter() - t0) / n
+
+
+def _host_all_reduce_ms(payload, group) -> float:
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_mod.all_reduce_sum(payload, group)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def _phase13_rank(rank, world, store, out, backend):
+    """A rank of (b)/(c): the three sharded sweeps on a (1 x W) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from common_tpu_torch import models, rng, topic
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.parallel import mesh as mesh_mod
+    from common_tpu_torch.relational import kernels as irm_kernels
+    from common_tpu_torch.topic import hdp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    if rank:  # rank 0 speaks for the ranks; a failure on any rank raises in the parent
+        sys.stdout = open(os.devnull, "w")
+    mesh_mod.init_distributed(backend, init_method=f"file://{store}", world_size=world, rank=rank)
+    torch.cuda.set_device(torch.device(device))
+    dev = torch.device(device)
+    mesh = mesh_mod.make_mesh(1, world, backend=backend, device=device if backend == "gloo" else None)
+    what = f"{backend} rank {rank}"
+    rec = {}
+
+    gen = rng(SEED + 10, dev).generator
+    words, mask, _ = hdp_corpus(dev, gen)
+    words, mask = words[:D13B].contiguous(), mask[:D13B].contiguous()
+    data = topic.dense_token_data(words, mask)
+    s0 = topic.initialize(data, K10, V10, gen, n_docs=D13B)
+
+    # the token-sharded sweep and a beta move (doc_topic replicated: no mesh)
+    s, d = topic.shard_corpus(mesh, s0, data)
+    flat = topic.make_sharded_sweep(mesh, s, d)
+    g = rng(SEED + 132, dev).generator
+    s, sweep_s = _timed_sweeps(lambda s: topic.sample_beta(flat(s, d, g, chunk=CHUNK13), g, max_count=L10),
+                               s, BSWEEPS13)
+    z, dk = _gathered_hdp(mesh, s, dense=False)
+    recount = hdp._counts(z, data, D13B, K10, V10)
+    same = all(torch.equal(a, b) for a, b in zip((dk, s.topic_word, s.topic_total), recount))
+    ident = _replicated_identical(mesh, [s.doc_topic, s.topic_word, s.topic_total, s.beta])
+    require(same, f"{what}: token-sharded tables differ from a recount of the gathered z")
+    require(ident, f"{what}: token-sharded replicated leaves differ across the ranks")
+    rec["tokens"] = {"sweeps_per_s": 1.0 / sweep_s, "recount_equal": same, "replicated_identical": ident,
+                     "all_reduce_ms": _host_all_reduce_ms([s.doc_topic, s.topic_word, s.topic_total],
+                                                          mesh.data_group),
+                     "all_reduce_mb": (s.doc_topic.numel() + s.topic_word.numel() + K10) * 4 / 1e6}
+    del s, d, z, dk, recount
+
+    # the doc-sharded sweep with the mesh's beta and concentration moves
+    s, w, m = topic.shard_dense_corpus(mesh, s0, words, mask)
+    dense = topic.make_sharded_sweep_dense(mesh, s, w, m)
+    s, sweep_s = _timed_sweeps(lambda s: topic.sample_beta(dense(s, w, m, g, doc_chunk=CHUNK10), g, mesh=mesh),
+                               s, BSWEEPS13)
+    s = topic.sample_concentrations(s, g, max_count=L10, mesh=mesh)
+    z, dk = _gathered_hdp(mesh, s, dense=True)
+    recount = hdp._counts(z, data, D13B, K10, V10)
+    same = all(torch.equal(a, b) for a, b in zip((dk, s.topic_word, s.topic_total), recount))
+    ident = _replicated_identical(mesh, [s.topic_word, s.topic_total, s.beta, s.hypers["alpha"],
+                                         s.hypers["gamma"], g.get_state()])
+    require(same, f"{what}: doc-sharded tables differ from a recount of the gathered z")
+    require(ident, f"{what}: doc-sharded replicated leaves (beta, alpha, gamma) differ across the ranks")
+    rec["dense"] = {"sweeps_per_s": 1.0 / sweep_s, "recount_equal": same, "replicated_identical": ident,
+                    "all_reduce_ms": _host_all_reduce_ms([s.topic_word], mesh.data_group),
+                    "all_reduce_mb": s.topic_word.numel() * 4 / 1e6}
+    del s, w, m, z, dk, recount, s0, data, words, mask
+
+    # the cell-sharded IRM sweep on the full relation
+    views = _irm_views13(dev)
+    defn = irm.model_definition([N11, N11], [((0, 1), models.bb)], k_max=K11)
+    s = irm.initialize(defn, views, rng(SEED + 131, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2)
+    local = irm_kernels.shard_cells(mesh, views)
+    sweep = irm_kernels.make_sharded_sweep(mesh, s, local)
+    s, sweep_s = _timed_sweeps(lambda s: sweep(s, local, g), s, BSWEEPS13)
+    rebuilt = irm_kernels.restat(s, views)
+    same = _irm_same(s, rebuilt)
+    ident = _replicated_identical(mesh, list(s.assignments) + [t for st_r in s.suffstats for t in st_r.values()])
+    require(same, f"{what}: IRM counts and suffstats differ from a rebuild")
+    require(ident, f"{what}: IRM assignments and suffstats differ across the ranks")
+    table = torch.zeros((N11, K11), device=dev)
+    rec["irm"] = {"sweeps_per_s": 1.0 / sweep_s, "recount_equal": same, "replicated_identical": ident,
+                  "cells_a_rank": int(local[0].indices.shape[0]),
+                  "all_reduce_ms": _host_all_reduce_ms([table], mesh.data_group),
+                  "all_reduce_mb": table.numel() * 4 / 1e6}
+    launched = _launches()
+    require(not any(launched.values()), f"{what}: a sharded HDP or IRM sweep launched a kernel: {launched}")
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _spawn13(world: int, backend: str, tmp: str) -> list:
+    from common_tpu_torch.parallel import mesh as mesh_mod
+
+    out = os.path.join(tmp, f"p13_{backend}")
+    mesh_mod.spawn(_phase13_rank, (world, os.path.join(tmp, f"store13_{backend}"), out, backend), world,
+                   timeout_s=SPAWN_TIMEOUT12)
+    recs = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _log13(tag: str, recs: list, backend: str) -> None:
+    for k, what in (("tokens", f"token-sharded sweep + beta, {D13B} docs x {L10}"),
+                    ("dense", f"doc-sharded sweep + beta (mesh), {D13B} docs x {L10}"),
+                    ("irm", f"cell-sharded IRM sweep, {N11} x {N11}")):
+        r = recs[0][k]
+        label = ("two processes on one card over gloo, a plumbing rate, not a multi-card one" if backend == "gloo"
+                 else f"{len(recs)} cards over nccl")
+        log(f"({tag}) {what}: {r['sweeps_per_s']:.3f} sweeps/s ({label}); the all_reduce of "
+            f"{r['all_reduce_mb']:.2f} MB {r['all_reduce_ms']:.2f} ms; after {BSWEEPS13} sweeps the tables "
+            f"equal a recount {r['recount_equal']}, replicated leaves identical on every rank "
+            f"{r['replicated_identical']}")
+
+
+def phase_sharded_families() -> dict:
+    """Phase 13: the sharded HDP and IRM sweeps on the card (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    rec = {"ws1": _phase13_ws1(tmp)}
+    t0 = time.perf_counter()
+    rec["gloo_2"] = _spawn13(2, "gloo", tmp)
+    _log13("b", rec["gloo_2"], "gloo")
+    log(f"(b) {time.perf_counter() - t0:.1f} s with the spawn and each rank's data")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        rec["nccl_cards"] = _spawn13(min(count, 4), "nccl", tmp)
+        _log13("c", rec["nccl_cards"], "nccl")
+    else:
+        log(f"(c) one card found (torch.cuda.device_count() = {count}): no multi-card NCCL run")
+    shutil.rmtree(tmp)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 wall time {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2922,6 +3311,7 @@ def main() -> int:
         hdp_out = phase_hdp()
         irm_out = phase_irm()
         sharded_out = phase_sharded(result)
+        families_out = phase_sharded_families()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -2929,7 +3319,7 @@ def main() -> int:
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
                     "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out,
-                    "sharded": sharded_out, "card": env["card"]}))
+                    "sharded": sharded_out, "sharded_families": families_out, "card": env["card"]}))
     log(json.dumps({"sharded_launches": {
         "sweep_world_size_1": sharded_out["launches_ws1"],
         "sweep_gloo_one_sweep_a_rank": {shape: [r[shape]["launches_one_sweep"] for r in sharded_out["gloo_2"]]

@@ -37,7 +37,7 @@ from common_tpu_torch.ops.gaussian_assign import (
 from common_tpu_torch.ops.linear_assign import fused_linear_assign
 from common_tpu_torch.ops.suffstat import fused_scatter_stats
 from common_tpu_torch.parallel.chains import vmap_sweep
-from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, gumbel_argmax_rows, standard_gamma
+from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, standard_gamma
 from common_tpu_torch.state import MixtureState
 
 
@@ -178,14 +178,10 @@ def _device_seed(generator, device) -> torch.Tensor:
                          dtype=torch.int32)
 
 
-def _prior_fallback(z, logw, mask, generator, row0: int = 0, n_total: int | None = None):
-    """Fully-masked rows carry no likelihood: assign them from the weights alone.
-
-    z holds rows row0 .. row0 + n - 1 of n_total (a data shard,
-    `parallel/sharded.py`); the noise is those rows of the whole table.
-    """
+def _prior_fallback(z, logw, mask, generator):
+    """Fully-masked rows carry no likelihood: assign them from the weights alone."""
     n, K = z.shape[0], logw.shape[-1]
-    z_prior = gumbel_argmax_rows(logw.expand(n, K), generator, row0, n_total).to(torch.int32)
+    z_prior = gumbel_argmax(logw.expand(n, K), generator).to(torch.int32)
     return torch.where(mask > 0, z, z_prior)
 
 

@@ -42,6 +42,7 @@ import torch.multiprocessing as mp
 
 from common_tpu_torch import validator
 from common_tpu_torch.parallel.chains import map_tensors
+from common_tpu_torch.rng import shard_generator
 
 CHAINS, DATA = "chains", "data"
 BACKENDS = ("nccl", "gloo")
@@ -200,6 +201,20 @@ def chain_span(mesh: Mesh, n_chains: int):
     return _span(n_chains, mesh.chains, mesh.chain_index, "chains")
 
 
+def data_generator(mesh: Mesh, generator: torch.Generator) -> torch.Generator:
+    """The generator of this rank's own draws over its data shard (its rows',
+    tokens' or docs' noise), given the chain's generator, seeded alike on
+    every data rank.
+
+    One data rank: `generator` itself, so a sharded sweep at world size 1
+    draws what the one-device sweep draws. Several: `rng.shard_generator`
+    of `generator` and the rank's data index, so each rank draws only for
+    its shard, from a stream no other rank shares, and `generator` advances
+    alike on every rank.
+    """
+    return generator if mesh.data == 1 else shard_generator(generator, mesh.data_index)
+
+
 def shard_state(mesh: Mesh, state, data):
     """This rank's shard of a chain-stacked state and of the data columns, on
     the mesh's device: its chains (all leaves), their assignments at its
@@ -231,6 +246,21 @@ def all_reduce_sum(tensors, group):
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = piece.reshape(tensors[i].shape)
+    return out
+
+
+def require_equal_shards(mesh: Mesh, n_local: int, what: str) -> None:
+    """Every data rank of this rank's chain row holds n_local `what`s (one
+    all_gather), or ValueError."""
+    sizes = all_gather_cat(torch.tensor([n_local], device=mesh.device), mesh.data_group)
+    if not bool((sizes == n_local).all()):
+        raise ValueError(f"data ranks hold unequal {what} counts {sizes.tolist()}: {what}s must divide over data")
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of t over the group's ranks, as a new tensor."""
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

@@ -17,20 +17,19 @@ Per chain, on each data rank:
      `row_offset` = the shard's first global row, so the shard draws the
      noise a whole-data launch draws for its rows; rows with a zero mask
      are assigned from the weights alone;
-   - any other likelihood set: the plain route of `blocked.sweep`, its
-     Gumbel noise the rank's rows of the [N, K] table a whole-data sweep
-     draws;
+   - any other likelihood set: the plain route of `blocked.sweep`;
 3. the local counts and stats (niw: sum_xxT by kernel 2,
    `ops/suffstat.py`), all-reduced over the chain's data ranks; latent
    leaves are kept from theta.
 
-The noise of step 2's plain route and the niw fallback is the rank's rows
-of the whole [N, K] draw (`rng.gumbel_argmax_rows`, shared with
-`blocked._prior_fallback` and the plain version of kernel 1), so every data
-rank draws N x K uniforms a sweep; that keeps the chain's generators in
-step on every rank and makes the rows' noise independent across shards,
-at a cost of O(N x K) a rank that does not shrink with the data ranks. With the all-reduce the identity, at
-world size 1 `make_sharded_sweep`'s sweep returns `blocked.sweep_fused`'s
+The Gumbel noise of step 2's plain route and of the niw fallback is
+[N_local, K], drawn from the rank's own stream (`mesh.data_generator`:
+derived on the host from the chain's generator and the rank's data index,
+as the JAX package folds the data index into the chain's key), so the
+noise a rank draws shrinks with the data ranks, no two ranks share it, and
+the chain's generator advances alike on every rank. At one data rank that
+stream is the chain's generator itself: with the all-reduce the identity,
+at world size 1 `make_sharded_sweep`'s sweep returns `blocked.sweep_fused`'s
 state (niw) or `blocked.sweep`'s (any other set) bit for bit, given the
 same state and generator. Per-sweep exchange per chain: O(K x suffstat),
 e.g. K = 64, niw at D = 256: 64 (1 + 256 + 256^2) x 4 B = 17 MB,
@@ -56,12 +55,11 @@ from common_tpu_torch.kernels import blocked
 from common_tpu_torch.ops.gaussian_assign import fused_gaussian_assign
 from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.parallel.chains import stack_states, unstack_state
-from common_tpu_torch.rng import gumbel_argmax_rows
+from common_tpu_torch.rng import gumbel_argmax
 from common_tpu_torch.state import MixtureState
 
 
-def _local_sweep(state_c: MixtureState, data_blk, generator, mesh, row0: int,
-                 n_total: int) -> MixtureState:
+def _local_sweep(state_c: MixtureState, data_blk, generator, mesh, row0: int) -> MixtureState:
     """One chain's sweep on this rank's rows; returns the state with the
     rank's assignments and the all-reduced counts and stats."""
     K = state_c.k_max
@@ -72,12 +70,12 @@ def _local_sweep(state_c: MixtureState, data_blk, generator, mesh, row0: int,
         z = fused_gaussian_assign(x, mu, binv, base, blocked._device_seed(generator, x.device),
                                   row_offset=row0)
         m = mask.to(x.dtype)
-        z = blocked._prior_fallback(z, logw, m, generator, row0, n_total)
+        z = blocked._prior_fallback(z, logw, m, mesh_mod.data_generator(mesh, generator))
         local = [blocked._fused_niw_stats(x, m, z, K)]
     else:
         thetas, logw, loglik_table = blocked.sweep_parts(state_c, data_blk, generator)
         logp = logw[None, :] + loglik_table(data_blk)  # [n, K]; masked rows score 0
-        z = gumbel_argmax_rows(logp, generator, row0, n_total).to(torch.int32)
+        z = gumbel_argmax(logp, mesh_mod.data_generator(mesh, generator)).to(torch.int32)
         local = [lik.stats_from_assignments(hyper, x, mask, z, K)
                  for (x, mask), lik, hyper in zip(data_blk, state_c.likelihoods(), state_c.hypers)]
 
@@ -107,10 +105,8 @@ def make_sharded_sweep(mesh, states: MixtureState, data):
     n_local = data[0][0].shape[0]
     if states.assignments.shape[-1] != n_local:
         raise ValueError(f"assignments hold {states.assignments.shape[-1]} rows, the data {n_local}")
-    sizes = mesh_mod.all_gather_cat(torch.tensor([n_local], device=mesh.device), mesh.data_group)
-    if not bool((sizes == n_local).all()):
-        raise ValueError(f"data ranks hold unequal row counts {sizes.tolist()}: rows must divide over data")
-    row0, n_total = mesh.data_index * n_local, mesh.data * n_local
+    mesh_mod.require_equal_shards(mesh, n_local, "row")
+    row0 = mesh.data_index * n_local
     n_chains = states.counts.shape[0]
 
     def sweep(states_blk: MixtureState, data_blk, generators) -> MixtureState:
@@ -118,7 +114,7 @@ def make_sharded_sweep(mesh, states: MixtureState, data):
         if len(generators) != n_chains:
             raise ValueError(f"{n_chains} local chains need {n_chains} generators, got {len(generators)}")
         return stack_states([
-            _local_sweep(unstack_state(states_blk, c), data_blk, generators[c], mesh, row0, n_total)
+            _local_sweep(unstack_state(states_blk, c), data_blk, generators[c], mesh, row0)
             for c in range(n_chains)
         ])
 

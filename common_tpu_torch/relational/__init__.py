@@ -5,9 +5,9 @@ Public surface, as in the JAX package:
   RelView, as_views, score_assignment / score_likelihood / score_joint,
   pred_logpdf / predict_missing (link prediction),
   kernels.assign (exact collapsed Gibbs), kernels.sweep (blocked),
-  kernels.domain_alpha_escobar_west / domain_alpha_grid.
-The JAX package's cell-sharded sweep (`kernels.shard_cells`,
-`kernels.make_sharded_sweep`) waits for the multi-GPU port.
+  kernels.domain_alpha_escobar_west / domain_alpha_grid,
+  kernels.shard_cells / kernels.make_sharded_sweep (the blocked sweep with
+  each relation's cells sharded over a `parallel.mesh.Mesh`'s data ranks).
 """
 
 from common_tpu_torch.relational import kernels  # noqa: F401

@@ -1,4 +1,4 @@
-"""IRM inference kernels (port of `common_tpu/relational/kernels.py`, one device).
+"""IRM inference kernels (port of `common_tpu/relational/kernels.py`).
 
 Reference analog: the `irm` sibling repo reuses the kernels repo's Gibbs
 drivers (`kernels:microscopes/kernels/gibbs.pyx`) through the
@@ -29,11 +29,16 @@ score_value over cluster-block suffstats.
     reads only each entity's own cells.
   - `domain_alpha_escobar_west`, `domain_alpha_grid`: each domain's CRP
     concentration.
+  - `shard_cells(mesh, views)` and `make_sharded_sweep(mesh, state, views)`:
+    the blocked sweep with each relation's cells sharded over the data axis
+    of a `parallel.mesh.Mesh`. theta, the stick weights and the assignments
+    are drawn alike on every rank from the chain's generator; each domain's
+    [N_d, K_d] table and, at the end, the suffstats are summed over the
+    ranks' cells (one all_reduce each). Relations without a repeated
+    domain only, as in the JAX package.
 
 Every sampler takes an explicit `torch.Generator` on the state's device and
 consumes it in order (the JAX package folds a key per domain and entity).
-The JAX package's cell-sharded sweep (`shard_cells`, `make_sharded_sweep`)
-is not ported here.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 
 from common_tpu_torch.kernels.blocked import stick_break_log_weights
 from common_tpu_torch.kernels.gibbs import _aux_slot_mask
+from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.parallel.chains import map_tensors
 from common_tpu_torch.relational import state as irm_state
 from common_tpu_torch.relational.state import IRMState, _k_maxes
@@ -375,29 +381,95 @@ def restat(state: IRMState, views) -> IRMState:
     return dataclasses.replace(state, counts=counts, suffstats=stats)
 
 
-def _sweep_domain(state: IRMState, views, thetas, domain: int, generator: torch.Generator):
-    """z_d | theta, z_-d: the new [N_d] assignment of one domain."""
+def _sweep_domain(state: IRMState, views, thetas, domain: int, generator: torch.Generator,
+                  group=None):
+    """z_d | theta, z_-d: the new [N_d] assignment of one domain. With a
+    process group, views are the rank's cells and the table is summed over
+    the group's ranks."""
     logw = stick_break_log_weights(generator, state.counts[domain],
                                    state.cluster_hps[domain]["alpha"])
     if _self_relational(state, domain):
         return _sequential_given_theta(state, views, thetas, domain, logw, generator)
     table = _domain_loglik_table(state, views, thetas, domain)
+    if group is not None:
+        (table,) = mesh_mod.all_reduce_sum([table], group)
     return gumbel_argmax(logw.to(table.dtype)[None, :] + table, generator).to(torch.int32)
+
+
+def _sweep_domains(state: IRMState, views, generator: torch.Generator, group=None) -> IRMState:
+    """theta | z, then z_d | theta, z_-d and its counts for each domain in turn."""
+    thetas = _sample_block_params(state, generator)
+    for d in range(state.ndomains):
+        z_new = _sweep_domain(state, views, thetas, d, generator, group)
+        assignments = list(state.assignments)
+        assignments[d] = z_new
+        counts = list(state.counts)
+        counts[d] = _assignment_counts(assignments[d], state.k_max(d))
+        state = dataclasses.replace(state, assignments=tuple(assignments), counts=tuple(counts))
+    return state
 
 
 def sweep(state: IRMState, views, generator: torch.Generator) -> IRMState:
     """One blocked sweep: theta | z, then z_d | theta, z_-d for each domain in
     turn, then the suffstats rebuilt from the new assignments."""
     views = irm_state.as_views(views)
-    thetas = _sample_block_params(state, generator)
-    for d in range(state.ndomains):
-        z_new = _sweep_domain(state, views, thetas, d, generator)
-        assignments = list(state.assignments)
-        assignments[d] = z_new
-        counts = list(state.counts)
-        counts[d] = _assignment_counts(assignments[d], state.k_max(d))
-        state = dataclasses.replace(state, assignments=tuple(assignments), counts=tuple(counts))
-    return restat(state, views)
+    return restat(_sweep_domains(state, views, generator), views)
+
+
+# ---------------------------------------------------------------------------
+# multi-device: cell-sharded blocked sweep
+# ---------------------------------------------------------------------------
+def shard_cells(mesh, views):
+    """This rank's cells of each relation, on the mesh's device: the cell
+    axis padded to a multiple of the data ranks, then the rank's contiguous
+    slice of it. Padding cells carry mask 0 and index 0, so no table or
+    suffstat counts them."""
+    out = []
+    for v in irm_state.as_views(views, device=mesh.device):
+        m = v.indices.shape[0]
+        pad = (-m) % mesh.data
+        a, b = mesh_mod._span(m + pad, mesh.data, mesh.data_index, "cells")
+
+        def padded(t):
+            return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])[a:b].to(mesh.device).contiguous()
+
+        out.append(irm_state.RelView(padded(v.indices), padded(v.values), padded(v.mask)))
+    return tuple(out)
+
+
+def make_sharded_sweep(mesh, state: IRMState, views):
+    """The cell-sharded blocked sweep: (state, views_blk, generator) -> state,
+    on this rank (`shard_cells`'s layout; the state whole on every rank).
+
+    theta, every domain's stick weights and its Gumbel argmax over the
+    [N_d, K_d] table are drawn from `generator`, seeded alike on every data
+    rank, in `sweep`'s order; the table of the rank's cells is summed over
+    the data ranks (one all_reduce a domain) and so is every relation's
+    suffstat block at the end (one all_reduce). The assignments are the
+    same on every rank, and at one data rank the sweep is `sweep` bit for
+    bit (on a card under `torch.use_deterministic_algorithms(True)`: the
+    table's `index_add_` of float logpdfs otherwise adds in another order
+    each call, in `sweep` too). A domain on two axes of one relation (a self-relation) needs
+    `sweep`'s sequential loop over all its cells: refused (ValueError).
+    """
+    if any(_self_relational(state, d) for d in range(state.ndomains)):
+        raise ValueError(
+            "the cell-sharded sweep supports only relations without repeated domains "
+            "(a self-relation needs the sequential-given-theta loop over all its cells); "
+            "use kernels.sweep on one device for those")
+    del views
+
+    def sweep(state: IRMState, views_blk, generator: torch.Generator) -> IRMState:
+        views_blk = irm_state.as_views(views_blk)
+        state = _sweep_domains(state, views_blk, generator, mesh.data_group)
+        k_maxes = _k_maxes(state)
+        local = [irm_state.compute_relation_stats(lik, state.hypers[r], state.rel_domains[r],
+                                                  state.assignments, views_blk[r], k_maxes)
+                 for r, lik in enumerate(state.likelihoods())]
+        reduced = iter(mesh_mod.all_reduce_sum([t for s in local for t in s.values()], mesh.data_group))
+        return dataclasses.replace(state, suffstats=tuple({k: next(reduced) for k in s} for s in local))
+
+    return sweep
 
 
 # ---------------------------------------------------------------------------

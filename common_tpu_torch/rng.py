@@ -10,6 +10,8 @@ same numpy inputs.
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
 
 from common_tpu_torch import validator
@@ -68,7 +70,9 @@ def gumbel_argmax_rows(logits: torch.Tensor, generator: torch.Generator, row0: i
     row0 + n): the noise is those rows of the [n_total, K] table a call over
     all rows draws, so a shard of rows draws what the whole call draws for
     them and leaves the generator where the whole call leaves it. At row0 = 0
-    and n_total = n it is `gumbel_argmax` bit for bit.
+    and n_total = n it is `gumbel_argmax` bit for bit. The plain version of
+    the Gaussian assignment kernel draws its `row_offset` rows so; it costs
+    O(n_total x K), so a sampler's data shard draws from `shard_generator`.
     """
     n, K = logits.shape
     n_total = row0 + n if n_total is None else n_total
@@ -76,6 +80,25 @@ def gumbel_argmax_rows(logits: torch.Tensor, generator: torch.Generator, row0: i
         raise ValueError(f"rows {row0}..{row0 + n} lie outside the {n_total} rows")
     g = gumbel((n_total, K), generator, logits.dtype)[row0:row0 + n]
     return torch.argmax(logits + g, dim=-1)
+
+
+def shard_generator(generator: torch.Generator, shard: int) -> torch.Generator:
+    """A new generator for shard `shard`'s own draws, derived from `generator`
+    (the counterpart of JAX's `fold_in(key, shard)`).
+
+    Its seed is a hash of `generator.get_state()` and `shard`, computed on
+    the host: a card's generator keeps its seed and Philox offset there, so
+    nothing is read from the device. `generator` then advances by one
+    uniform draw, the same on every shard, so ranks that hold it seeded
+    alike stay in step, and the next stream it derives is another. Shards
+    of one state get distinct seeds, so their streams are independent.
+    """
+    if shard < 0:
+        raise ValueError(f"shard must be >= 0, got {shard}")
+    state = generator.get_state().numpy().tobytes()
+    digest = hashlib.blake2b(state + int(shard).to_bytes(8, "little"), digest_size=8).digest()
+    torch.rand(1, generator=generator, device=generator.device)
+    return torch.Generator(device=generator.device).manual_seed(int.from_bytes(digest, "little") >> 1)
 
 
 def standard_gamma(shape_param: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -34,7 +34,21 @@ slot. Samplers:
 counts m_dk = sum_i Bernoulli(a/(a+i)), one [D, K] batch a value of i;
 `sample_concentrations` reuses one such draw for alpha, gamma and beta.
 Every sampler takes an explicit `torch.Generator` on the state's device.
-The JAX package's sharded sweeps are not ported here.
+
+Over a `parallel.mesh.Mesh` (its data axis), as in the JAX package:
+
+  - `shard_corpus` + `make_sharded_sweep`: tokens sharded, every count
+    table replicated; phi and theta drawn alike on every rank from the
+    chain's generator, one all_reduce of the three count tables a sweep;
+  - `shard_dense_corpus` + `make_sharded_sweep_dense`: docs sharded with
+    their z, theta and doc_topic; phi drawn alike on every rank, one
+    all_reduce of topic_word a sweep; `sample_beta` and
+    `sample_concentrations` take the mesh on this layout.
+
+A rank draws noise only for its own tokens or docs, from its own stream
+(`mesh.data_generator`); at one data rank that stream is the chain's
+generator, so each sharded sweep then equals its one-device sweep bit for
+bit. torch has no global sharded array: each rank holds its shard.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ import numpy as np
 import torch
 
 from common_tpu_torch import validator
+from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.rng import beta as beta_draw
 from common_tpu_torch.rng import standard_gamma, uniform_open
 
@@ -223,42 +238,60 @@ def _beta_from_tables(m_k, gamma, generator):
     return beta / beta.sum()
 
 
-def _sample_beta(state: HDPState, generator: torch.Generator, max_count: int) -> HDPState:
+def _reduce(values, mesh):
+    """The sums over the mesh's data ranks (one all_reduce), or the values."""
+    return values if mesh is None else mesh_mod.all_reduce_sum(values, mesh.data_group)
+
+
+def _sample_beta(state: HDPState, generator: torch.Generator, max_count: int, mesh=None) -> HDPState:
     K = state.n_topics
     ab = state.hypers["alpha"] * state.beta[:K]
-    m_dk = crt_sample(generator, state.doc_topic, ab[None, :], max_count)
-    m_k = m_dk.sum(0).to(state.beta.dtype)
+    stream = generator if mesh is None else mesh_mod.data_generator(mesh, generator)
+    m_dk = crt_sample(stream, state.doc_topic, ab[None, :], max_count)
+    (m_k,) = _reduce([m_dk.sum(0).to(state.beta.dtype)], mesh)
     return dataclasses.replace(state, beta=_beta_from_tables(m_k, state.hypers["gamma"], generator))
 
 
-def _max_count(state: HDPState) -> int:
-    return max(int(state.doc_topic.max()), 1)
+def _max_count(state: HDPState, mesh=None) -> int:
+    """The largest doc-topic count (over the data ranks' docs with a mesh), at least 1."""
+    top = state.doc_topic.max()
+    if mesh is not None:
+        top = mesh_mod.all_reduce_max(top, mesh.data_group)
+    return max(int(top), 1)
 
 
-def sample_beta(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None) -> HDPState:
+def sample_beta(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None,
+                mesh=None) -> HDPState:
     """beta | z: CRT table counts per (doc, topic), then Dirichlet.
 
     (beta_1..K, beta_rest) ~ Dir(m_.1, ..., m_.K, gamma), Teh et al. §5.3.
     max_count caps the CRT loop; it defaults to the largest doc-topic count,
     read from the device: pass it in a loop that must not wait.
+
+    mesh: the doc-sharded layout (`shard_dense_corpus`), where each rank
+    holds its docs' doc_topic rows. The rank draws its docs' table counts
+    from its own stream, the ranks sum m_k in one all_reduce, and beta is
+    drawn from `generator`, alike on every rank; max_count defaults to the
+    largest count over all ranks.
     """
-    return _sample_beta(state, generator, _max_count(state) if max_count is None else max_count)
+    return _sample_beta(state, generator, _max_count(state, mesh) if max_count is None else max_count, mesh)
 
 
 # ---------------------------------------------------------------------------
 # concentration resampling (alpha, gamma), Teh et al. 2006 §6 / appendix A
 # ---------------------------------------------------------------------------
 def _sample_concentrations(state: HDPState, generator: torch.Generator, max_count: int,
-                           a_alpha: float, b_alpha: float, a_gamma: float, b_gamma: float) -> HDPState:
+                           a_alpha: float, b_alpha: float, a_gamma: float, b_gamma: float,
+                           mesh=None) -> HDPState:
     K = state.n_topics
     alpha, gamma = state.hypers["alpha"], state.hypers["gamma"]
     dtype, dev = state.beta.dtype, state.beta.device
+    # the per-doc draws: the rank's docs from its own stream on a mesh
+    stream = generator if mesh is None else mesh_mod.data_generator(mesh, generator)
 
     # shared table counts m_dk ~ CRT(n_dk, alpha*beta_k), reused by alpha,
     # gamma and the beta redraw (the §5.3 joint move)
-    m_dk = crt_sample(generator, state.doc_topic, (alpha * state.beta[:K])[None, :], max_count)
-    m_k = m_dk.sum(0).to(dtype)
-    m_tot = m_k.sum()
+    m_dk = crt_sample(stream, state.doc_topic, (alpha * state.beta[:K])[None, :], max_count)
 
     # alpha | m, n (auxiliary-variable Gibbs, Teh appendix A):
     # w_d ~ Beta(alpha+1, n_d); s_d ~ Bernoulli(n_d / (n_d + alpha));
@@ -266,10 +299,14 @@ def _sample_concentrations(state: HDPState, generator: torch.Generator, max_coun
     n_d = state.doc_topic.sum(-1).to(dtype)
     has = n_d > 0
     n_safe = n_d.clamp(min=1.0)
-    w = beta_draw(torch.broadcast_to(alpha + 1.0, n_safe.shape).contiguous(), n_safe, generator)
-    s = torch.rand(n_d.shape, generator=generator, device=dev, dtype=dtype) < n_d / (n_d + alpha)
-    sum_log_w = torch.where(has, torch.log(w.clamp(min=1e-30)), 0.0).sum()
-    sum_s = (has & s).sum().to(dtype)
+    w = beta_draw(torch.broadcast_to(alpha + 1.0, n_safe.shape).contiguous(), n_safe, stream)
+    s = torch.rand(n_d.shape, generator=stream, device=dev, dtype=dtype) < n_d / (n_d + alpha)
+    m_k, sum_log_w, sum_s = _reduce([
+        m_dk.sum(0).to(dtype),
+        torch.where(has, torch.log(w.clamp(min=1e-30)), 0.0).sum(),
+        (has & s).sum().to(dtype),
+    ], mesh)
+    m_tot = m_k.sum()
     new_alpha = standard_gamma(a_alpha + m_tot - sum_s, generator) / (b_alpha - sum_log_w)
 
     # gamma | m (Escobar-West 1995 on the top-level restaurant: m.. customers
@@ -291,29 +328,40 @@ def _sample_concentrations(state: HDPState, generator: torch.Generator, max_coun
 
 def sample_concentrations(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None,
                           a_alpha: float = 1.0, b_alpha: float = 1.0,
-                          a_gamma: float = 1.0, b_gamma: float = 1.0) -> HDPState:
+                          a_gamma: float = 1.0, b_gamma: float = 1.0, mesh=None) -> HDPState:
     """Resample (alpha, gamma, beta) | z under Gamma(a, b) hyperpriors.
 
     One CRT draw of the table counts m_dk feeds (i) the auxiliary-variable
     alpha move over docs, (ii) an Escobar-West gamma move over the top-level
     restaurant (m.. customers, K+ dishes), and (iii) the Dirichlet beta
-    redraw. max_count as in `sample_beta`.
+    redraw. max_count and mesh as in `sample_beta`: with a mesh, m_dk and
+    the per-doc auxiliaries w_d, s_d are the rank's docs' (its own stream),
+    m_k, sum log w_d and sum s_d are summed over the ranks in one
+    all_reduce, and alpha, gamma and beta are drawn alike on every rank.
     """
     return _sample_concentrations(
-        state, generator, _max_count(state) if max_count is None else max_count,
-        float(a_alpha), float(b_alpha), float(a_gamma), float(b_gamma))
+        state, generator, _max_count(state, mesh) if max_count is None else max_count,
+        float(a_alpha), float(b_alpha), float(a_gamma), float(b_gamma), mesh)
 
 
 # ---------------------------------------------------------------------------
 # blocked (uncollapsed) sweeps, the parallel path
 # ---------------------------------------------------------------------------
-def _draw_phi_theta(state: HDPState, generator: torch.Generator):
-    """phi | z [K, V] and theta | z [D, K]; theta is D Dirichlet draws of K
-    gammas each (torch's gamma sampler, normalised in log space)."""
+def _draw_phi(state: HDPState, generator: torch.Generator) -> torch.Tensor:
+    """phi | z [K, V]."""
+    return _dirichlet(state.topic_word + state.hypers["eta"], generator)
+
+
+def _draw_theta(state: HDPState, generator: torch.Generator) -> torch.Tensor:
+    """theta | z, one row a row of doc_topic: Dirichlet draws of K gammas
+    each (torch's gamma sampler, normalised in log space)."""
     K = state.n_topics
-    phi = _dirichlet(state.topic_word + state.hypers["eta"], generator)
-    theta = _dirichlet(state.doc_topic + state.hypers["alpha"] * state.beta[:K][None, :], generator)
-    return phi, theta
+    return _dirichlet(state.doc_topic + state.hypers["alpha"] * state.beta[:K][None, :], generator)
+
+
+def _draw_phi_theta(state: HDPState, generator: torch.Generator):
+    """phi | z [K, V] and theta | z [D, K]."""
+    return _draw_phi(state, generator), _draw_theta(state, generator)
 
 
 def _log_clipped(p: torch.Tensor) -> torch.Tensor:
@@ -328,6 +376,26 @@ def _perturbed_argmax(logp: torch.Tensor, generator: torch.Generator) -> torch.T
     return torch.argmax(logp, dim=-1).to(torch.int32)
 
 
+def _assign_tokens(state: HDPState, data: TokenData, phi, theta, generator: torch.Generator,
+                   chunk: Optional[int]) -> torch.Tensor:
+    """The tokens' new z given phi and theta: Gumbel-argmax over log theta
+    + log phi, `chunk` tokens a table (all at once for None); masked tokens
+    keep their z."""
+    log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K]
+    log_theta = _log_clipped(theta)                 # [D, K]
+    T = data.words.shape[0]
+    docs = data.doc_ids.clamp(max=state.n_docs - 1)
+    step = T if chunk is None or chunk >= T else int(chunk)
+    z = torch.empty_like(state.z)
+    for a in range(0, T, step):
+        b = min(T, a + step)
+        logp = log_theta[docs[a:b]]
+        logp += log_phi_t[data.words[a:b]]
+        z[a:b] = _perturbed_argmax(logp, generator)
+        del logp
+    return torch.where(data.mask > 0, z, state.z)
+
+
 def blocked_sweep(state: HDPState, data: TokenData, generator: torch.Generator,
                   chunk: Optional[int] = None) -> HDPState:
     """phi, theta | z, then all tokens reassigned at once.
@@ -337,20 +405,8 @@ def blocked_sweep(state: HDPState, data: TokenData, generator: torch.Generator,
     sampler either way.
     """
     phi, theta = _draw_phi_theta(state, generator)
-    log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K]
-    log_theta = _log_clipped(theta)                 # [D, K]
-    D, T = state.n_docs, data.words.shape[0]
-    docs = data.doc_ids.clamp(max=D - 1)
-    step = T if chunk is None or chunk >= T else int(chunk)
-    z = torch.empty_like(state.z)
-    for a in range(0, T, step):
-        b = min(T, a + step)
-        logp = log_theta[docs[a:b]]
-        logp += log_phi_t[data.words[a:b]]
-        z[a:b] = _perturbed_argmax(logp, generator)
-        del logp
-    z = torch.where(data.mask > 0, z, state.z)
-    dk, kw, kt = _counts(z, data, D, state.n_topics, state.vocab_size)
+    z = _assign_tokens(state, data, phi, theta, generator, chunk)
+    dk, kw, kt = _counts(z, data, state.n_docs, state.n_topics, state.vocab_size)
     return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kt)
 
 
@@ -406,9 +462,17 @@ def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator
     doc's L tokens. Peak memory is [doc_chunk, L, K]; doc_chunk=None takes
     about 2^26 elements (256 MB of float32) a table, the JAX default.
     """
+    phi, theta = _draw_phi_theta(state, generator)
+    z, dk, kw = _assign_docs(state, words, mask, phi, theta, generator, doc_chunk)
+    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
+
+
+def _assign_docs(state: HDPState, words, mask, phi, theta, generator: torch.Generator,
+                 doc_chunk: Optional[int]):
+    """The docs' new z [D * L] given phi and theta [D, K], `doc_chunk` docs a
+    table, with their doc_topic [D, K] and topic_word [K, V] counts."""
     D, L = words.shape
     K, V = state.n_topics, state.vocab_size
-    phi, theta = _draw_phi_theta(state, generator)
     log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K], a word's scores one row
     log_theta = _log_clipped(theta)                 # [D, K]
     step = min(D, max(1024, (1 << 26) // max(L * K, 1)) if doc_chunk is None else int(doc_chunk))
@@ -429,8 +493,107 @@ def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator
         dk[a:b] = counts[:, :K]
     z = z.reshape(-1)
     flat_kw = torch.where(valid.reshape(-1), z.long() * V + words.reshape(-1), K * V)
-    kw = _segment_count(flat_kw, K * V).view(K, V)
-    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
+    return z, dk, _segment_count(flat_kw, K * V).view(K, V)
+
+
+# ---------------------------------------------------------------------------
+# multi-device: token- and doc-sharded blocked sweeps over a Mesh
+# ---------------------------------------------------------------------------
+def _on(state: HDPState, device) -> HDPState:
+    return dataclasses.replace(
+        state, **{f.name: getattr(state, f.name).to(device) for f in dataclasses.fields(state)
+                  if f.name != "hypers"},
+        hypers={k: v.to(device) for k, v in state.hypers.items()})
+
+
+def shard_corpus(mesh, state: HDPState, data: TokenData):
+    """This rank's shard of the token-sharded layout, on the mesh's device:
+    its contiguous slice of the token axis of `data` and of `state.z`;
+    every other leaf (the count tables, beta, hypers) whole, replicated.
+
+    The token count must divide over the data ranks (ValueError); pad with
+    masked tokens first (`variadic_dataview(pad_to=...)`).
+    """
+    a, b = mesh_mod._span(data.words.shape[0], mesh.data, mesh.data_index, "tokens")
+    local = TokenData(*(t[a:b].to(mesh.device).contiguous() for t in data))
+    state = _on(state, mesh.device)
+    return dataclasses.replace(state, z=state.z[a:b].contiguous()), local
+
+
+def make_sharded_sweep(mesh, state: HDPState, data: TokenData):
+    """The token-sharded blocked sweep: (state, data_blk, generator,
+    chunk=None) -> state, on this rank (`shard_corpus`'s layout).
+
+    phi and theta are drawn from `generator`, seeded alike on every data
+    rank, so they agree without a broadcast; the rank scores and reassigns
+    its tokens `chunk` at a time as `blocked_sweep` does, its Gumbel noise
+    from its own stream; the three count tables of its tokens (global doc
+    ids) are summed over the data ranks in one all_reduce. Every rank must
+    hold the same number of tokens: checked here with one all_gather.
+    """
+    n_local = data.words.shape[0]
+    if state.z.shape[0] != n_local:
+        raise ValueError(f"z holds {state.z.shape[0]} tokens, the data {n_local}")
+    mesh_mod.require_equal_shards(mesh, n_local, "token")
+    D, K, V = state.n_docs, state.n_topics, state.vocab_size
+
+    def sweep(state: HDPState, data_blk: TokenData, generator: torch.Generator,
+              chunk: Optional[int] = None) -> HDPState:
+        phi, theta = _draw_phi_theta(state, generator)
+        z = _assign_tokens(state, data_blk, phi, theta, mesh_mod.data_generator(mesh, generator), chunk)
+        dk, kw, kt = mesh_mod.all_reduce_sum(list(_counts(z, data_blk, D, K, V)), mesh.data_group)
+        return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kt)
+
+    return sweep
+
+
+def shard_dense_corpus(mesh, state: HDPState, words, mask):
+    """This rank's shard of the doc-sharded layout, on the mesh's device:
+    (state, words, mask) with its contiguous block of docs of `words`,
+    `mask`, `state.z` and `state.doc_topic`; topic_word, topic_total, beta
+    and hypers whole, replicated.
+
+    The doc count must divide over the data ranks (ValueError); pad with
+    empty docs first. The state must come from `dense_token_data(words,
+    mask)`, so z is row-major over [D, L].
+    """
+    D, L = words.shape
+    a, b = mesh_mod._span(D, mesh.data, mesh.data_index, "docs")
+    state = _on(state, mesh.device)
+    state = dataclasses.replace(state, z=state.z[a * L:b * L].contiguous(),
+                                doc_topic=state.doc_topic[a:b].contiguous())
+    dev = mesh.device
+    return (state, torch.as_tensor(words)[a:b].to(dev).contiguous(),
+            torch.as_tensor(mask)[a:b].to(dev).contiguous())
+
+
+def make_sharded_sweep_dense(mesh, state: HDPState, words, mask):
+    """The doc-sharded dense sweep: (state, words_blk, mask_blk, generator,
+    doc_chunk=None) -> state, on this rank (`shard_dense_corpus`'s layout).
+
+    phi is drawn from `generator`, alike on every data rank; theta only for
+    the rank's docs, from its own stream, which then gives their Gumbel
+    noise; the rank's docs are reassigned `doc_chunk` at a time as in
+    `blocked_sweep_dense`, their doc_topic stays local, and topic_word is
+    summed over the data ranks in one all_reduce (topic_total is its row
+    sums). Every rank must hold the same number of docs: checked here
+    with one all_gather.
+    """
+    d_loc, L = words.shape
+    if state.doc_topic.shape[0] != d_loc or state.z.shape[0] != d_loc * L:
+        raise ValueError(f"the state holds {state.doc_topic.shape[0]} docs, the corpus {d_loc} of {L} tokens")
+    mesh_mod.require_equal_shards(mesh, d_loc, "doc")
+
+    def sweep(state: HDPState, words_blk, mask_blk, generator: torch.Generator,
+              doc_chunk: Optional[int] = None) -> HDPState:
+        phi = _draw_phi(state, generator)
+        stream = mesh_mod.data_generator(mesh, generator)
+        theta = _draw_theta(state, stream)
+        z, dk, kw = _assign_docs(state, words_blk, mask_blk, phi, theta, stream, doc_chunk)
+        (kw,) = mesh_mod.all_reduce_sum([kw], mesh.data_group)
+        return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
+
+    return sweep
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,34 @@ def test_port_imports_no_jax():
         "import common_tpu_torch.relational.kernels, common_tpu_torch.data.sparse\n"
         "import common_tpu_torch.parallel.mesh, common_tpu_torch.parallel.sharded\n"
         "import common_tpu_torch.parallel.scaling, common_tpu_torch.io.loader\n"
+        "import common_tpu_torch.kernels, common_tpu_torch.utils, common_tpu_torch.examples\n"
+        "import common_tpu_torch.examples.dpmm, common_tpu_torch.examples.binary_matrix\n"
+        "import common_tpu_torch.examples.multichain_heldout, common_tpu_torch.examples.smc_evidence\n"
+        "import common_tpu_torch.examples.lda_topics, common_tpu_torch.examples.irm_links\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_kernels_and_utils_export_the_reference_names():
+    """`common_tpu_torch.kernels` has the JAX package's six kernel modules as
+    attributes, `common_tpu_torch.utils` its four util functions and
+    `common_tpu_torch.ops` its kernel entry point, in a fresh process that
+    imports no JAX."""
+    code = (
+        "import sys, types\n"
+        "from common_tpu_torch.ops import fused_gaussian_assign\n"
+        "import common_tpu_torch.kernels as k\n"
+        "from common_tpu_torch.utils import logsumexp, almost_eq\n"
+        "from common_tpu_torch.utils import random_assignment_vector, random_orthonormal_matrix\n"
+        "mods = [getattr(k, n) for n in ('blocked', 'gibbs', 'hmc', 'slice_', 'smc', 'svi')]\n"
+        "assert all(isinstance(m, types.ModuleType) for m in mods)\n"
+        "assert k.smc.__name__ == 'common_tpu_torch.kernels.smc'\n"
+        "import torch\n"
+        "assert abs(float(logsumexp(torch.zeros(4))) - float(torch.log(torch.tensor(4.0)))) < 1e-6\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'common_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -53,7 +81,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/kernel_turns.py",
-                                    "scripts/assign_tilings.py", "scripts/linear_variants.py"])
+                                    "scripts/assign_tilings.py", "scripts/linear_variants.py",
+                                    "scripts/irm_determinism.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card import neither JAX nor the JAX package."""
     import ast

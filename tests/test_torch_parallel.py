@@ -10,9 +10,12 @@ another order; JAX's at rtol 1e-4, atol 1e-4 as there); the sweep is
 deterministic given the seeds; chains are independent; the 2 x 2 sampler
 matches the exact partition posterior (KL 0.03); the reduction of float64
 stats over 2 ranks equals JAX's `stats_from_assignments` at rtol 1e-9; the
-scaling harness measures. One process: at world size 1 the sharded sweep
-equals `blocked.sweep` (bb) and `blocked.sweep_fused` (niw; the kernels'
-plain versions on the CPU) bit for bit, and `init_distributed` keeps the
+scaling harness measures; at two data ranks each rank draws only its own
+rows' [N_local, K] Gumbel noise, from a stream of its own, and the ranks'
+chain generators stay in step. One process: at world size 1 the sharded
+sweep equals `blocked.sweep` (bb) and `blocked.sweep_fused` (niw; the
+kernels' plain versions on the CPU) bit for bit, `rng.shard_generator`
+derives distinct, reproducible streams, and `init_distributed` keeps the
 JAX failure policy.
 """
 
@@ -106,6 +109,41 @@ def test_sharded_sampler_matches_enumeration(tmp_path):
     testutil.assert_discrete_dist_approx(sample_fn, exact, nsamples=6000, ntries=3, kl_tol=0.03)
 
 
+def test_each_data_rank_draws_only_its_rows_noise(tmp_path):
+    """At two data ranks the plain route (bb) and the niw fallback draw
+    [n_local, K] Gumbel noise a sweep, from the rank's own stream, never the
+    whole [N, K] table and never from the chain's generator; the two ranks'
+    noise differs, and their chain generators end in the same state."""
+    out = str(tmp_path / "noise")
+    W.spawn(W.noise_checks, 2, tmp_path, out)
+    res = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(2)]
+    for lik in ("bb", "niw"):
+        for r in res:
+            np.testing.assert_array_equal(r[f"{lik}_stream_shapes"], [[20, 8]] * 3)
+            assert int(r[f"{lik}_chain_draws"]) == 0
+        assert not np.array_equal(res[0][f"{lik}_first_noise"], res[1][f"{lik}_first_noise"])
+        np.testing.assert_array_equal(res[0][f"{lik}_gen_state"], res[1][f"{lik}_gen_state"])
+
+
+def test_shard_generator_streams():
+    """rng.shard_generator: the same parent state and shard give the same
+    stream; other shards and the parent's own stream differ; the parent
+    advances by the same amount whatever the shard; a negative shard is
+    refused."""
+    from common_tpu_torch.rng import shard_generator
+
+    parents = [torch.Generator().manual_seed(5) for _ in range(3)]
+    streams = [shard_generator(p, i) for p, i in zip(parents, (0, 0, 1))]
+    draws = [torch.rand(64, generator=g) for g in streams]
+    assert torch.equal(draws[0], draws[1]) and not torch.equal(draws[0], draws[2])
+    assert torch.equal(parents[0].get_state(), parents[2].get_state())
+    assert not torch.equal(torch.rand(64, generator=parents[0]), draws[0])
+    again = shard_generator(parents[1], 0)  # the parent moved on: a new stream
+    assert not torch.equal(torch.rand(64, generator=again), draws[0])
+    with pytest.raises(ValueError, match="shard"):
+        shard_generator(parents[2], -1)
+
+
 @pytest.mark.parametrize("lik", ["niw", "bb"])
 def test_world_size_one_equals_the_one_device_sweep(lik):
     """At world size 1 the all_reduce is the identity and the offset 0: the
@@ -157,8 +195,8 @@ def test_row_offset_draws_the_whole_rows_noise():
 
 
 def test_gumbel_rows_of_the_whole_table():
-    """rng.gumbel_argmax_rows, the noise of the sharded plain route and the
-    niw fallback: at row 0 of n rows it is gumbel_argmax bit for bit, and
+    """rng.gumbel_argmax_rows, the noise of kernel 1's plain version with a
+    row_offset: at row 0 of n rows it is gumbel_argmax bit for bit, and
     row shards of n_total draw the whole call's z and leave every shard's
     generator where the whole call leaves it; rows outside n_total raise."""
     from common_tpu_torch.rng import gumbel_argmax, gumbel_argmax_rows
