@@ -35,8 +35,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    card) on the largest cluster, with sum_xxT equal to its transpose bit
    for bit; times fused and plain sweeps, and each kernel against its plain
    version, its bound and its library yardstick on those inputs (the
-   scatter wrapper's sort and search apart from its kernels); traces one
-   more sweep for device time by kernel and the device's idle share.
+   scatter wrapper's sort and search apart from its kernels); the replay
+   check (below) on 2 runner steps; traces one more sweep for device time
+   by kernel and the device's idle share.
 4. Path A, multi-chain, on the data of phase 3: four CRP initialisations,
    stacked; one first sweep_chains(..., fused=True) timed apart, then 5
    sweeps with the counts set to 0 just before, each followed by every
@@ -44,15 +45,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    multi-chain kernel once a sweep, the scatter kernel once a chain a
    sweep), counts, finite values, the stats against the plain restat, and
    the multi-chain kernel draw for draw on the sweep's own inputs over all
-   rows and chains; prints split-R-hat, ESS, chain-sweeps/s, the kernel
-   against its plain version and the idle share of a traced sweep.
+   rows and chains, and the replay of one sweep_chains; prints
+   split-R-hat, ESS, chain-sweeps/s, the kernel against its plain version
+   and the idle share of a traced sweep.
 5. Path B, config 2: a Beta-Bernoulli DPMM at 100k x 64, K_max=32 (8
    planted Beta(0.5, 0.5) profiles, numpy seed 0, 4096 held-out rows),
    runner(..., [("assign_blocked_fused", {}), ("slice_hp", {...})]) for 8
    iterations with the counts set to 0 just before. Checks launches,
    finite scores, counts, the held-out log density against the
-   one-cluster state's, and the linear kernel draw for draw on the path's
-   own inputs and on the CRP start's; prints iterations/s, the kernel
+   one-cluster state's, the linear kernel draw for draw on the path's
+   own inputs and on the CRP start's, and the replay of 2 runner
+   iterations with their resume pair; prints iterations/s, the kernel
    against its plain version, its library yardstick warm and L2-cold, the
    noise its inputs need, and the slice sampler's share.
 6. BASELINE config 1 by collapsed Gibbs: 10,000 x 2 rows around the three
@@ -82,7 +85,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    1e-4 of its size, at most half the steps with ESS < 2; prints rows/s,
    the resamples, the ESS, the weighted cloud's held-out density beside the
    JAX record (history, other data), kernel 2 on one block's own inputs
-   against its plain version, and the idle share of one traced block step.
+   against its plain version, and the idle share of one traced block step;
+   then the replay of `run_blocked` at these settings on the first 65,536
+   rows (cut from 1M for time).
 8. Split-merge at 1M x 256 on phase 3's final state: the runner's
    [assign_blocked_fused, split_merge(n_moves=4, t_scans=3)] once, then 4
    moves timed one by one. Checks kernel launches (one sweep, 5 a merge
@@ -97,15 +102,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    at most 5 each) once, then 10 iterations with the counts set to 0 just
    before. Checks no kernel launched, finite scores, hypers in their
    support, counts a bincount of z, stats against a plain restat, the
-   held-out logp/row above the one-cluster state's, and the NUTS hyper
-   target's gradient (fp32, card) within 1e-3 of float64 on the CPU;
-   prints iterations/s, each runner kernel's ms and share, the NUTS
-   transitions' leaves, depth, acceptance, divergences and host reads,
+   held-out logp/row above the one-cluster state's, the replay of 2 runner
+   iterations with their resume pair, and the NUTS hyper target's
+   gradient (fp32, card) within 1e-3 of float64 on the CPU; prints
+   iterations/s, each runner kernel's ms and share, the NUTS transitions'
+   leaves, depth, acceptance, divergences and host reads,
    the idle share of a traced iteration, a transition against 31 leaves
    issued with no read, and the cost of one read. Then SVI on the same
    rows: `svi.init`, 30 CAVI steps (the ELBO never falls by more than 1e-5
    of itself; the first 3 steps against float64 on the CPU from the same
-   posterior), 200 minibatch steps at batch 1024 (the ELBO above init's),
+   posterior, and replayed), 200 minibatch steps at batch 1024 (the ELBO above init's),
    `to_state` and `predictive_logpdf` held-out densities; and nuts_theta
    on a bbnc state over the binary column (p inside its bounds and within
    6 sd of its Beta conditional).
@@ -118,7 +124,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    events (utils/profiling.benchmark), 15 more. Checks the count tables
    equal a recount of z, each doc_topic row sums to its doc's tokens, beta
    on the simplex, held-out z unmoved, the score above the initial state's,
-   the held-out perplexity under 5,000, no kernel launched; prints sweeps/s,
+   the held-out perplexity under 5,000, no kernel launched, the replay of
+   2 dense sweeps + sample_beta; prints sweeps/s,
    tokens/s, peak memory, the ms of the draws, the sweep and the CRT, the
    idle share of a traced sweep, the float64 gap of score_joint and the
    largest count slot, beside the JAX record's 2887.67 and the planted
@@ -144,7 +151,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    scores, no kernel launched, the best-scoring chain's co-assignment
    agreement with the planted labels above 0.95 in both domains, counts
    summing to N_d, the n stats to the 16.8M cells, counts and stats equal to
-   a rebuild, one runner step under `set_sync_debug_mode("error")`; prints
+   a rebuild, one runner step under `set_sync_debug_mode("error")`, each
+   domain's [4096, 32] table built twice from one state and theta equal bit
+   for bit (0 entries differ; the table is an order-fixed segment sum, no
+   atomics), and the replay of 3 blocked sweeps and of the runner's
+   resume pair; prints
    each chain's sweeps/s and agreement, cells/s, peak memory, the ms of a
    sweep's theta draw, each domain's table and argmax and the restat, the
    idle share of a traced sweep, and the same 30 sweeps from a CRP start
@@ -156,7 +167,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    example's CPU run: 1.000), one collapsed sweep under the sync check, its
    launches an entity and idle share. (c) A checkpoint of the collapsed
    runner's state after 1 iteration, resumed for 1 more, equal bit for bit
-   to 2 straight.
+   to 2 straight. (d) A 1024 x 1024 nich relation (float suffstats, which
+   bb's integer counts hide; 8 x 8 planted block means, 10% of cells
+   missing, numpy seed 0): the replay of 3 blocked sweeps, and of one
+   collapsed sweep over the 30 entities of its first 30 rows (a 30 x 1024
+   cut); prints the ms of each.
 12. The multi-device layer and the CSV loader (run after phase 11, before
    phase 6), on the main path's 1M x 256 rows (`headline_data()` anew),
    K_max=64. (a) World size 1 over NCCL: 3 sweeps of
@@ -195,10 +210,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    CHUNK10); `topic.make_sharded_sweep` against `blocked_sweep` on the same
    corpus flattened (50M tokens, CHUNK13 tokens a table); the IRM's
    `make_sharded_sweep` against `relational.sweep` on phase 11's 4096 x
-   4096 relation, K_max 32, both sides under
-   `torch.use_deterministic_algorithms(True)` (the table's index_add_ of
-   float logpdfs adds in another order each call on the card by default,
-   which the phase measures first). Each pair equal bit for bit (z, count
+   4096 relation, K_max 32, in torch's default mode (the table and the
+   suffstats are order-fixed segment sums). Each pair equal bit for bit (z, count
    tables, beta; assignments, counts, suffstats), no kernel launched;
    prints ms a sweep of both sides, the all_reduce's ms and MB, the peak
    memory. (b)
@@ -212,6 +225,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    ranks; prints sweeps/s and the all_reduce's ms. (c) With 2 or more
    cards, (b) over NCCL on min(count, 4) cards; otherwise a line says one
    card was found.
+
+Replay checks (phases 3, 4, 5, 7, 9, 10 and 11): a path run twice from one
+start state and one generator seed must end equal bit for bit in every
+leaf (assignments, counts, every stats leaf, the hypers, and a runner's
+score trace); where the path has a runner, 1 step, a checkpoint with the
+generator and 1 more step from the restored state must also end equal to 2
+straight steps.
 
 In the `kernels` line, `max_abs_err` of scatter_stats is max|kernel - plain|
 on the main path's z. The assignment kernels return labels, so their
@@ -255,7 +275,6 @@ The line before the last is the card's name and power limit; the last is
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import shutil
@@ -274,6 +293,7 @@ N6, K6, SWEEPS6, LAST6, TRACE_ROWS6 = 10_000, 32, 13, 4, 300  # config 1, collap
 ADD6, RESAMPLE6 = 64, 64  # phase 6's subsample annealing schedule
 # config 5 by block-SMC, at the JAX record's settings (BENCH_MEASURED_R5.json:91-118)
 P7, BLOCK7, WARMUP7, REJUV7 = 16, 8192, 128, 1
+REPLAY7 = 65_536  # rows of config 5's replay check (cut from 1M for time)
 SLACK7 = 1e-4  # logz may sit this share of |bound| below phase 3's best joint (fp32 sums over 123 blocks)
 MOVES8, SCANS8 = 4, 3  # phase 8's split-merge moves at 1M x 256
 # config 3 (bench.py:903-1007): niw(16) + gp + bb at 100k rows (+ 2048 held out), K_max=32
@@ -299,6 +319,7 @@ LDA10, HELD_LDA10, CAVI10, CHECK_DOCS10, SVI10, BATCH10 = 100_000, 2_000, 10, 2_
 # in both packages: one such chain runs too, with no bar
 N11, BLOCKS11, K11, SWEEPS11, FULL_CHAINS11 = 4096, 8, 32, 30, 6
 SELF11, SELF_SWEEPS11 = 512, 10  # (b) a blocked self-relation: the sequential-given-theta path at size
+NICH11 = 1024  # (d) a nich relation for the replay check of the float-leaf restat and collapsed step
 # (b) examples/irm_links.py's recipe through [assign, ew_domain_alpha] from LINK_CHAINS11 CRP starts: the
 # best-scoring chain must predict the held-out links to LINK_BAR11 (the JAX example's CPU run: 1.000 of
 # 147 cells; from one start collapsed Gibbs may stay in one or two clusters, in both packages)
@@ -612,6 +633,95 @@ def require_distribution(zs, probs, what: str) -> None:
     log(f"{what} x{reps} seeds: max gap {max_gap:.4f} (bar < 0.15), "
         f"mean gap {mean_gap:.4f} (bar < 0.03)")
     require(max_gap < 0.15 and mean_gap < 0.03, f"{what}: distribution off")
+
+
+def _leaves(x, name: str = "end"):
+    """(name, value) of every tensor, array, number and string of a state, a
+    sampler's result or a tuple of them, in a fixed order."""
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(x) or isinstance(x, (np.ndarray, np.generic, int, float, bool, str)) or x is None:
+        yield name, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name), f"{name}.{f.name}")
+    elif hasattr(x, "_fields"):  # a NamedTuple
+        for f in x._fields:
+            yield from _leaves(getattr(x, f), f"{name}.{f}")
+    elif isinstance(x, dict):  # by key: a checkpoint restores a dict's keys sorted
+        for k in sorted(x, key=str):
+            yield from _leaves(x[k], f"{name}.{k}")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{name}[{i}]")
+    else:
+        raise TypeError(f"{name}: no leaves of a {type(x).__name__}")
+
+
+def _same_leaf(a, b) -> bool:
+    import torch
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (np.ndarray, np.generic)):
+        return isinstance(b, (np.ndarray, np.generic)) and a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def require_replay(what: str, a, b) -> dict:
+    """Two ends of one path from one start and one generator seed: equal bit
+    for bit in every leaf (assignments, counts, every stats leaf, hypers)."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    require([n for n, _ in la] == [n for n, _ in lb], f"replay {what}: the two ends differ in structure")
+    differ = [n for (n, x), (_, y) in zip(la, lb) if not _same_leaf(x, y)]
+    log(f"replay {what}: {len(la)} leaves, " + ("equal bit for bit" if not differ else f"DIFFER in {differ[:8]}"))
+    require(not differ, f"replay {what}: the two runs differ in {differ[:8]}")
+    return {"leaves": len(la), "equal": True}
+
+
+def runner_replay(what: str, defn, data, start, config, seed: int, dev) -> dict:
+    """From `start` and generator seed `seed`: 2 runner steps twice, and 1
+    step, a checkpoint with the generator, a restore and 1 more step; the
+    three ends (state and score trace) equal bit for bit."""
+    import torch
+
+    from common_tpu_torch import io, rng
+    from common_tpu_torch.runner import runner
+
+    t0 = time.perf_counter()
+    ends = []
+    for _ in range(2):
+        run = runner(defn, data, start, config)
+        run.run(rng(seed, dev).generator, 2)
+        ends.append((run.get_latent(), run.score_trace))
+    g = rng(seed, dev).generator
+    first = runner(defn, data, start, config)
+    first.run(g, 1)
+    blob = io.serialize(first.get_latent(), extra={"gen": g})
+    restored, extra = io.deserialize(blob, device=dev)
+    rest = runner(defn, data, restored, config)
+    rest.run(extra["gen"], 1)
+    resumed = (rest.get_latent(), np.concatenate([first.score_trace, rest.score_trace]))
+    require_replay(f"{what}: 2 runner steps, twice", ends[0], ends[1])
+    require_replay(f"{what}: 1 step, a {len(blob)}-byte checkpoint and 1 more, against 2 straight",
+                   ends[0], resumed)
+    torch.cuda.synchronize()
+    return {"equal": True, "resume_equal": True, "s": time.perf_counter() - t0}
+
+
+def replay(what: str, drive) -> dict:
+    """drive() twice (each from one start and one generator seed); the two
+    ends equal bit for bit."""
+    import torch
+
+    t0 = time.perf_counter()
+    a = drive()
+    b = drive()
+    rec = require_replay(what, a, b)
+    torch.cuda.synchronize()
+    return {**rec, "s": time.perf_counter() - t0}
 
 
 def _softmax_problem(n, d, k, seed, device):
@@ -953,6 +1063,8 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     require(rel64 <= 1e-5, "scatter stats off float64 on the largest cluster")
     require(symmetric, "scatter stats are not exactly symmetric")
     del rows, want64, got
+    replayed = runner_replay(f"main path ({N}x{D}, K_max={K_MAX})", defn, data, s, [("assign_blocked_fused", {})],
+                             SEED + 300, dev)
     idle, _ = profile_sweep(lambda: run.run(gen, 1))
     # phases 7 and 8 start from this chain: its best joint score bounds
     # block-SMC's log Z, and split-merge moves its final state
@@ -977,7 +1089,7 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
         ],
         "sweeps_per_s": N_SWEEPS / run_s,
         "fused_sweep_ms": fused_ms, "plain_sweep_ms": plain_ms,
-        "heldout_logp_per_dim": lp_dim, "idle_share": idle,
+        "heldout_logp_per_dim": lp_dim, "idle_share": idle, "replay": replayed,
     }
 
 
@@ -1076,6 +1188,8 @@ def phase_chains(headline: dict) -> dict:
         f"bound {y4['bound_ms']:.2f} ms ({y4['bound_by']}, 3xTF32; fp32 CUDA cores "
         f"{y4['bound_fp32_ms']:.2f} ms), share {y4['bound_ms'] / k4:.3f}; library {y4['library']}: "
         f"{y4['library_ms']:.2f} ms")
+    replayed = replay(f"path A: 1 sweep_chains of {C} chains",
+                      lambda: blocked.sweep_chains(states, data, rng(SEED + 301, dev).generator, fused=True))
     idle, _ = profile_sweep(lambda: blocked.sweep_chains(states, data, gen, fused=True))
     return {
         "kernel": {"name": "gaussian_assign_chains", "route": "cuda",
@@ -1088,7 +1202,7 @@ def phase_chains(headline: dict) -> dict:
         "chain_sweeps_per_s": C * CHAIN_SWEEPS / run_s,
         "sweep_chains_ms": float(np.median(sweep_ms)),
         "split_rhat": rhat, "ess": ess,
-        "heldout_logp_per_dim": lps[:, -1].tolist(), "idle_share": idle,
+        "heldout_logp_per_dim": lps[:, -1].tolist(), "idle_share": idle, "replay": replayed,
     }
 
 
@@ -1240,6 +1354,14 @@ def phase_smc(headline: dict) -> dict:
         smc._rejuv_block(q, cols, zb, valid, gen)
 
     idle, _ = profile_sweep(block_step)
+
+    # replay on the first REPLAY7 rows (cut for time)
+    cut = tuple((c[:REPLAY7], m[:REPLAY7]) for c, m in data)
+    parts5 = smc.init_particles(st.model_definition(REPLAY7, [models.niw(D)], k_max=K_MAX), cut,
+                                rng(SEED + 303, dev).generator, P7, cluster_hp={"alpha": 1.0}, feature_hps=[hyper])
+    replayed = replay(f"config 5: run_blocked on the first {REPLAY7} rows",
+                      lambda: smc.run_blocked(parts5, cut, rng(SEED + 304, dev).generator, block=BLOCK7,
+                                              warmup=WARMUP7, rejuvenation_blocks=REJUV7))
     return {
         "kernel": {"name": "scatter_stats (block-SMC)", "route": "cuda",
                    "source": "common_tpu_torch/csrc/suffstat.cu",
@@ -1249,7 +1371,7 @@ def phase_smc(headline: dict) -> dict:
         "wall_s": wall, "rows_per_s": N / wall, "logz": logz, "best_joint3": joint,
         "n_resamples": res.n_resamples, "steps": len(ess), "ess_min": float(ess.min()),
         "ess_median": float(np.median(ess)), "ess_below_2": low, "heldout_logp_per_dim": lp_dim,
-        "top_particle_stats_err": errs, "idle_share": idle,
+        "top_particle_stats_err": errs, "idle_share": idle, "replay": replayed,
     }
 
 
@@ -1419,6 +1541,8 @@ def phase_config2() -> dict:
     a, b = s.hypers[0]["alpha"], s.hypers[0]["beta"]
     log(f"hypers after {ITERS2} iterations: alpha in [{a.min():.3f}, {a.max():.3f}], "
         f"beta in [{b.min():.3f}, {b.max():.3f}], CRP alpha {float(s.cluster_hp['alpha']):.4f}")
+    replayed = runner_replay("path B (config 2)", defn, data, s, [("assign_blocked_fused", {}), ("slice_hp", hp_kw)],
+                             SEED + 302, dev)
 
     lp_dim = st.heldout_logp(s, heldout).mean().item() / D2
     one = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=[hyper],
@@ -1494,7 +1618,7 @@ def phase_config2() -> dict:
         "iterations_per_s": ITERS2 / run_s,
         "fused_sweep_ms": sweep_med, "slice_hp_ms": hp_med, "slice_hp_idle_share": hp_idle,
         "slice_eval_ms": waited_ms, "slice_eval_queued_ms": eval_queued_ms,
-        "heldout_logp_per_dim": lp_dim, "one_cluster_logp_per_dim": lp_one,
+        "heldout_logp_per_dim": lp_dim, "one_cluster_logp_per_dim": lp_one, "replay": replayed,
     }
 
 
@@ -1625,6 +1749,7 @@ def phase_config3() -> dict:
     require(all(np.isfinite(v) and v > 0 for v in hyp.values()), f"a hyper left its support: {hyp}")
     require(int(s.counts.sum()) == N9, "counts do not sum to N")
     require_bookkeeping(s, data, "config-3 state", K9)
+    replayed = runner_replay("config 3", defn, data, s, config, SEED + 305, dev)
 
     lp_row = st.heldout_logp(s, held).mean().item()
     one = st.initialize(defn, data, gen, cluster_hp={"alpha": 1.0}, feature_hps=hps,
@@ -1734,6 +1859,7 @@ def phase_config3() -> dict:
     data64 = tuple((x.double().cpu(), m.double().cpu()) for x, m in data)
     cpu_post, _ = svi.fit_cavi(post64, data64, CHECK9)
     card_post, _ = svi.fit_cavi(post, data, CHECK9)
+    require_replay(f"config 3: {CHECK9} CAVI steps", card_post, svi.fit_cavi(post, data, CHECK9)[0])
     # rtol 1e-3, with an atol of 1e-4 of each leaf's largest entry: each fp32
     # E-step moves r by a few 1e-6 of itself (its scores are tens of nats at
     # fp32 rounding), which moves a weighted sum by that share of the leaf's
@@ -1805,7 +1931,7 @@ def phase_config3() -> dict:
             "leaf_ms": leaf_ms, "launch_ms": launch_ms, "read_ms": read_ms, "cavi_iterations_per_s": CAVI9 / cavi_s, "cavi_elbo": trace.tolist(),
             "cavi_f64_err": verr, "svi_steps_per_s": SVI9 / svi_s, "svi_elbo": elbo_svi,
             "svi_heldout_logp_per_row": lp_svi, "svi_predictive_logp_per_row": lp_pred,
-            "theta_s": theta_s, "theta_moved": moved, "phase_s": phase_s}
+            "theta_s": theta_s, "theta_moved": moved, "replay": replayed, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2083,12 +2209,20 @@ def _hdp_chain(dev) -> dict:
     log(f"held-out per-token perplexity after 18 sweeps: {ppl:.2f} (bar < 5000; uniform {V10}, planted "
         f"floor {V10 // BLOCKS10}; the JAX record {JAX_PPL10} on a TPU, history)")
     require(np.isfinite(ppl) and ppl < 5000, f"held-out perplexity {ppl} not under 5000")
+
+    def dense_pair():
+        g, x = rng(SEED + 306, dev).generator, s
+        for _ in range(2):
+            x = topic.sample_beta(topic.blocked_sweep_dense(x, words, mask, g, doc_chunk=CHUNK10), g, max_count=L10)
+        return x
+
+    replayed = replay("config 4: 2 dense sweeps + sample_beta", dense_pair)
     chain_rec = {"sweeps_per_s": sweeps_per_s, "tokens_per_s": tokens_per_s, "timed_s": timing["median_s"],
                  "peak_gib": peak / 2**30, "sweep_ms": sweep_ms, "draw_ms": draw_ms, "count_ms": count_ms,
                  "crt_beta_ms": crt_ms,
                  "score_ms": score_ms, "idle_share": idle, "device_ops": launched_n, "score_joint": score,
                  "score_f64_rel_gap": gap, "largest_slot": slot, "active_topics": int(s.active_topics()),
-                 "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace}
+                 "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace, "replay": replayed}
 
     # (b) the runner's HDP family on the same corpus, from (a)'s end
     config = [("assign_blocked", {}), ("concentrations", {})]
@@ -2389,9 +2523,26 @@ def _irm_full_width(dev) -> dict:
         torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    # where a sweep's time goes
+    # replay: each domain's table built twice, 3 blocked sweeps twice, the runner's resume pair
     thetas = irm_kernels._sample_block_params(s, gen)
     tables = [irm_kernels._domain_loglik_table(s, views, thetas, d) for d in range(2)]
+    again = [irm_kernels._domain_loglik_table(s, views, thetas, d) for d in range(2)]
+    differ = [int((a != b).sum()) for a, b in zip(tables, again)]
+    log(f"each domain's table built twice from one state and theta: {differ[0]} and {differ[1]} of "
+        f"{tables[0].numel()} entries differ (an atomic index_add_ route: about 127k of domain 0's, "
+        f"scripts/irm_determinism.py)")
+    require(all(torch.equal(a, b) for a, b in zip(tables, again)), f"the IRM tables differ run to run: {differ}")
+    del again
+
+    def blocked3():
+        g, x = rng(SEED + 307, dev).generator, s
+        for _ in range(3):
+            x = irm_kernels.sweep(x, views, g)
+        return x
+
+    replayed = {"tables_differ": differ, "blocked": replay("IRM: 3 blocked sweeps", blocked3),
+                "runner": runner_replay("IRM [assign_blocked]", defn, views, s, config, SEED + 308, dev)}
+    # where a sweep's time goes
     logw = [stick_break_log_weights(gen, s.counts[d], s.cluster_hps[d]["alpha"]) for d in range(2)]
     sweep_ms = cuda_ms(lambda: irm_kernels.sweep(s, views, gen), 3)
     theta_ms = cuda_ms(lambda: irm_kernels._sample_block_params(s, gen), 3)
@@ -2417,7 +2568,7 @@ def _irm_full_width(dev) -> dict:
             "agreement_chains": [x["agreement"] for x in chains], "chains_above_bar": above,
             "agreement_crp_start": agree_crp, "score_trace": scores.tolist(), "sweep_ms": sweep_ms,
             "theta_ms": theta_ms, "table_ms": table_ms, "argmax_ms": argmax_ms, "restat_ms": restat_ms,
-            "idle_share": idle, "device_ops": n_ops}
+            "idle_share": idle, "device_ops": n_ops, "replay": replayed}
 
 
 def _irm_self_relation(dev) -> dict:
@@ -2451,6 +2602,55 @@ def _irm_self_relation(dev) -> dict:
         f"theta): {ms:.1f} ms a sweep; agreement after {SELF_SWEEPS11} sweeps {agree:.5f} (no bar); "
         f"k_active {int(s.ngroups(0))}")
     return {"sweep_ms": ms, "agreement": agree}
+
+
+def _irm_nich(dev) -> dict:
+    """(d): replay on a NICH11 x NICH11 nich relation (float suffstats, which
+    bb's integer counts would hide), 10% of its cells missing: 3 blocked
+    sweeps twice, and one collapsed sweep of the first LINK_N11 rows' domain
+    (a LINK_N11 x NICH11 cut of it) twice."""
+    import torch
+
+    from common_tpu_torch import models, rng
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+    from common_tpu_torch.relational import kernels as irm_kernels
+
+    r = np.random.default_rng(SEED)
+    z = np.repeat(np.arange(BLOCKS11), NICH11 // BLOCKS11)
+    means = r.normal(0.0, 2.0, (BLOCKS11, BLOCKS11))
+    rel = (means[z][:, z] + r.normal(size=(NICH11, NICH11))).astype(np.float32)
+    missing = r.random((NICH11, NICH11)) < 0.1
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, missing_mask=missing, device=dev)])
+    defn = irm.model_definition([NICH11, NICH11], [((0, 1), models.nich)], k_max=K11)
+    start = [r.integers(0, K11, NICH11).astype(np.int32) for _ in range(2)]
+    s0 = irm.initialize(defn, views, rng(SEED + 25, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2,
+                        domain_assignments=start)
+
+    def blocked3():
+        g, x = rng(SEED + 26, dev).generator, s0
+        for _ in range(3):
+            x = irm_kernels.sweep(x, views, g)
+        return x
+
+    blocked = replay(f"IRM nich {NICH11} x {NICH11}, 10% missing: 3 blocked sweeps", blocked3)
+    s = blocked3()
+    require(np.isfinite(irm.score_joint(s).item()), "non-finite score_joint on the nich relation")
+    require_irm_bookkeeping(s, views, "nich relation after 3 blocked sweeps")
+
+    cut = irm.as_views([sparse_ndarray_dataview(dense=rel[:LINK_N11], missing_mask=missing[:LINK_N11],
+                                                device=dev)])
+    cdefn = irm.model_definition([LINK_N11, NICH11], [((0, 1), models.nich)], k_max=K11)
+    sc = irm.initialize(cdefn, cut, rng(SEED + 27, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2,
+                        domain_assignments=[start[0][:LINK_N11], s.assignments[1].cpu().numpy()])
+    irm_kernels.assign(sc, cut, rng(SEED + 28, dev).generator)  # builds the per-entity cell index
+    collapsed = replay(f"IRM nich {LINK_N11} x {NICH11}: one collapsed sweep of {LINK_N11} entities",
+                       lambda: irm_kernels.assign(sc, cut, rng(SEED + 28, dev).generator))
+    sweep_ms = cuda_ms(lambda: irm_kernels.sweep(s, views, rng(SEED + 29, dev).generator), 3)
+    collapsed_ms = cuda_ms(lambda: irm_kernels.assign(sc, cut, rng(SEED + 29, dev).generator), 2)
+    log(f"nich: blocked sweep {sweep_ms:.2f} ms at {NICH11} x {NICH11}; collapsed sweep of {LINK_N11} "
+        f"entities {collapsed_ms:.1f} ms")
+    return {"blocked": blocked, "collapsed": collapsed, "sweep_ms": sweep_ms, "collapsed_ms": collapsed_ms}
 
 
 def _irm_links(dev) -> dict:
@@ -2548,7 +2748,7 @@ def phase_irm(dev=None) -> dict:
     dev = torch.device("cuda") if dev is None else dev
     t_phase = time.perf_counter()
     rec = {"full_width": _irm_full_width(dev), "self_relation": _irm_self_relation(dev),
-           "links": _irm_links(dev)}
+           "links": _irm_links(dev), "nich": _irm_nich(dev)}
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 11 wall time {rec['phase_s']:.1f} s")
     return rec
@@ -2980,19 +3180,6 @@ def _in_turns(what: str, start, sharded_step, one_step, same) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """torch.use_deterministic_algorithms(True) inside, the caller's setting after."""
-    import torch
-
-    prev, warn = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev, warn_only=warn)
-
-
 def _collective(what: str, payload, group) -> dict:
     """The sweep's all_reduce alone on its payload: ms (CUDA events, NCCL) and MB."""
     from common_tpu_torch.parallel import mesh as mesh_mod
@@ -3063,30 +3250,9 @@ def _phase13_ws1(tmp: str) -> dict:
     s0 = irm.initialize(defn, views, rng(SEED + 131, dev).generator, cluster_hps=[{"alpha": 1.0}] * 2)
     local = irm_kernels.shard_cells(mesh, views)
     sweep = irm_kernels.make_sharded_sweep(mesh, s0, local)
-    # the [N_d, K] table sums float logpdfs with index_add_, whose atomic adds
-    # land in another order each call on the card: two tables of one state and
-    # theta differ, so the one-device sweep is not run-to-run identical. Both
-    # sides run with torch's deterministic index_add_ to be compared bit for bit
-    theta = irm_kernels._sample_block_params(s0, rng(SEED + 133, dev).generator)
-    tables = [irm_kernels._domain_loglik_table(s0, views, theta, 0) for _ in range(2)]
-    drift = (tables[0] - tables[1]).abs().max().item()
-    log(f"(a) the one-device IRM table of domain 0 built twice from one state and theta, index_add_'s default "
-        f"(atomic) order: {int((tables[0] != tables[1]).sum())} of {tables[0].numel()} entries differ, by up "
-        f"to {drift:.3e}; the pair below runs under torch.use_deterministic_algorithms(True)")
-    del theta, tables
-    with _deterministic():
-        rec["irm"] = _in_turns(f"cell-sharded IRM sweep, {N11} x {N11} bb, K_max={K11}, deterministic index_add_",
-                               s0, lambda s, g: sweep(s, local, g), lambda s, g: irm_kernels.sweep(s, views, g),
-                               _irm_same)
-    g = rng(SEED + 134, dev).generator
-    turns = {"sharded": [], "one": []}
-    for name in ("sharded", "one", "one", "sharded"):
-        step = (lambda: sweep(s0, local, g)) if name == "sharded" else (lambda: irm_kernels.sweep(s0, views, g))
-        turns[name].append(cuda_ms(step, SWEEPS13))
-    rec["irm"].update(table_drift=drift, default_sharded_ms=float(np.mean(turns["sharded"])),
-                      default_one_device_ms=float(np.mean(turns["one"])))
-    log(f"(a) the IRM pair in index_add_'s default mode, in turns: sharded {rec['irm']['default_sharded_ms']:.2f} ms, "
-        f"one-device {rec['irm']['default_one_device_ms']:.2f} ms a sweep")
+    # torch's default mode: the table and the suffstats are order-fixed segment sums
+    rec["irm"] = _in_turns(f"cell-sharded IRM sweep, {N11} x {N11} bb, K_max={K11}", s0,
+                           lambda s, g: sweep(s, local, g), lambda s, g: irm_kernels.sweep(s, views, g), _irm_same)
     table = torch.zeros((N11, K11), device=dev)
     payload = [table, table] + [t for st_r in s0.suffstats for t in st_r.values()]
     rec["irm"].update(_collective("IRM sweep (two [N_d, K] tables, then the suffstats)", payload,

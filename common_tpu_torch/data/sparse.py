@@ -83,8 +83,10 @@ class sparse_ndarray_dataview:
         self.values = torch.from_numpy(np.ascontiguousarray(vals)).to(device)
         self.mask = torch.from_numpy(mask).to(device)
         self._nobserved = m
-        # per-entity cell index of the relational kernels, built on first use
+        # per-entity cell index and blocked-table cell order of the relational
+        # kernels, built on first use
         self.entity_cells = {}
+        self.cell_orders = {}
 
     @property
     def ndim(self) -> int:

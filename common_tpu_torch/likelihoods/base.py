@@ -33,6 +33,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from common_tpu_torch.utils import segment
+
 Stats = Dict[str, torch.Tensor]
 
 
@@ -151,23 +153,17 @@ class Likelihood:
     def stats_from_assignments(self, hyper, X, mask, gid, K: int) -> Stats:
         """Per-cluster suffstats from scratch; rows with gid outside [0, K) drop.
 
-        Generic path: `tx` of all rows at once, then one segment sum per
-        leaf (an index_add into K + 1 bins, the last one dropped). Latent
-        leaves are not sums: they keep `init_stats`' values. Override where
-        the per-row suffstat is large (NIW's outer products).
+        Generic path: `tx` of all rows at once, then one order-fixed segment
+        sum per leaf over one sort of the rows by cluster
+        (`utils.segment`: no atomics, so a seed replays on the card too).
+        Latent leaves are not sums: they keep `init_stats`' values. Override
+        where the per-row suffstat is large (NIW's outer products).
         """
-        g = torch.where((gid >= 0) & (gid < K), gid, K).to(torch.int64)
+        clusters = segment.segments(gid, K)
         txs = self.tx(hyper, X, mask)
         zeros = self.init_stats(hyper, (K,))
-        out = {}
-        for k, z in zeros.items():
-            if k in self.latent_leaves:
-                out[k] = z
-                continue
-            t = txs[k].to(z.dtype)
-            acc = torch.zeros((K + 1, *z.shape[1:]), dtype=z.dtype, device=z.device)
-            out[k] = acc.index_add_(0, g, t)[:K]
-        return out
+        return {k: z if k in self.latent_leaves else clusters.sum(txs[k].to(z.dtype))
+                for k, z in zeros.items()}
 
     # --- collapsed scoring ---------------------------------------------
     def posterior_hyper(self, hyper, stats):

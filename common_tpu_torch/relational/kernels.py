@@ -10,8 +10,10 @@ score_value over cluster-block suffstats.
     scores each of the K_d candidates by scattering ALL M cells of the
     relation (weight 0 off the entity's cells), O(N_d K_d M) a sweep. Here
     an entity step reads only the observed cells that touch it, through a
-    per-entity cell index built once on the host (`entity_cells`), and
-    scatters them into one [K_d, prod K] table of candidate deltas: the
+    per-entity cell index built once on the host (`entity_cells`), sums
+    them by the blocks of the other axes in one order-fixed segment sum
+    (`utils.segment`), and places the sums in one [K_d, prod K] table of
+    candidate deltas: the
     conditional is sum over blocks of marginal_loglik(stats + delta_g) -
     marginal_loglik(stats), where the blocks the entity does not touch give
     exactly 0. A diagonal cell (e, e) of a self-relation moves to the
@@ -22,7 +24,8 @@ score_value over cluster-block suffstats.
   - `sweep(state, views, generator)`: blocked Gibbs. Draw the cluster-block
     parameters theta and each domain's stick weights, then reassign every
     entity of a domain at once from an [N_d, K_d] table of summed per-cell
-    logpdfs (built over chunks of cells, so the peak stays bounded).
+    logpdfs (built over chunks of cells, so the peak stays bounded, and
+    summed in an order fixed by the view, so a seed replays a chain).
     Domains touched by a self-relation (one domain on two or more axes)
     run a sequential-given-theta loop over their entities instead, which
     stays a valid Gibbs update where the parallel one would not; it too
@@ -57,6 +60,7 @@ from common_tpu_torch.relational import state as irm_state
 from common_tpu_torch.relational.state import IRMState, _k_maxes
 from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, standard_gamma, uniform_open
 from common_tpu_torch.state import _assignment_counts
+from common_tpu_torch.utils import segment
 
 NOISE_ENTITIES = 4096     # entities whose Gumbel noise is drawn in one call
 TABLE_ELEMS = 1 << 25     # [cells, K] elements of one chunk of the blocked table
@@ -118,7 +122,13 @@ class _EntityCells:
     entity step needs of them. With the entity in cluster g, its cells lie
     in the flat blocks base + coef * g, where base sums the other axes'
     clusters times their strides (`terms`: axis, domain, and the stride, or
-    a per-cell stride that is 0 on rows where the axis holds the entity)."""
+    a per-cell stride that is 0 on rows where the axis holds the entity).
+
+    A cell's class is the set of axes that hold the entity (one class in a
+    relation where the domain is on one axis; a self-relation's diagonal
+    cells form their own). With the entity in cluster g, block b' takes
+    class c's cells summed at base place[c, b'] - c * total where sel[c, g,
+    b'] holds: b' is that base with cluster g on every axis of the class."""
 
     rid: int
     ptr: list
@@ -127,6 +137,9 @@ class _EntityCells:
     terms: list
     total: int               # blocks of the relation's K-grid
     payload: dict            # per cell leaves [nnz, ...]
+    cls: torch.Tensor        # [nnz] int64 class of each cell
+    place: torch.Tensor      # [C, total] int64: class c, the block with its axes at cluster 0
+    sel: torch.Tensor        # [C, K_d, total] bool: the block's class axes all at cluster g
 
     def bins(self, assignments, e: int):
         """(lo, hi, base [..., n_c], coef [n_c]) of entity e; base has the
@@ -156,9 +169,20 @@ def _prepare(state: IRMState, views, domain: int, payload_fn) -> List[_EntityCel
         coef = sum(occ[:, a].long() * stride for a, stride in enumerate(strides))  # no host copy
         terms = [(a, doms[a], strides[a] if always else (~occ[:, a]).long() * strides[a])
                  for a, always in kept]
-        out.append(_EntityCells(rid=r, ptr=ptr, ind=view.indices[cells], coef=coef, terms=terms,
-                                total=int(np.prod([k_maxes[d] for d in doms])),
-                                payload=payload_fn(r, view, cells)))
+        axes = [a for a, dom in enumerate(doms) if dom == domain]
+        total = int(np.prod([k_maxes[d] for d in doms]))
+        blocks = torch.arange(total, device=occ.device)
+        g = torch.arange(k_maxes[domain], device=occ.device)
+        place, sel = [], []
+        for c in range(2 ** len(axes) - 1):  # each non-empty set of the domain's axes
+            on = [a for j, a in enumerate(axes) if (c + 1) >> j & 1]
+            coords = torch.stack([blocks // strides[a] % k_maxes[domain] for a in on])  # [|on|, total]
+            place.append(c * total + blocks - sum(coords[j] * strides[a] for j, a in enumerate(on)))
+            sel.append((coords[None] == g[:, None, None]).all(1))
+        out.append(_EntityCells(rid=r, ptr=ptr, ind=view.indices[cells], coef=coef, terms=terms, total=total,
+                                payload=payload_fn(r, view, cells),
+                                cls=sum(occ[:, a].long() << j for j, a in enumerate(axes)) - 1,
+                                place=torch.stack(place), sel=torch.stack(sel)))
     return out
 
 
@@ -185,40 +209,43 @@ def _remove_and_score(st: IRMState, preps, domain: int, e: int):
     each of its P chains (every tensor with a leading chain axis) and return
     the log conditional [P, K_d] of its candidate clusters (CRP weights plus
     the change of the summed block marginals), and each relation's
-    (flat block ids [P, n_c] without the entity's cluster, coef [n_c], and
-    its cells' contributions [P * n_c, ...]) for the add that follows.
+    contributions of the entity in each candidate cluster, {leaf: [P, K_d,
+    prod K, ...]}, for the add that follows.
 
-    Per relation, one [P, K_d + 1, prod K] table holds the stats without the
-    entity (row 0) and with it in each candidate cluster (rows 1..K_d), so
-    one marginal_loglik call scores all of them; blocks the entity does not
-    touch are equal in every row and difference to exactly 0.
+    Per relation, the entity's cells are summed by (chain, class, base) in
+    one order-fixed segment sum (`utils.segment`), then placed in each
+    candidate's blocks (`_EntityCells`: distinct blocks within a class, the
+    classes added in order). One [P, K_d + 1, prod K] table holds the stats
+    without the entity (row 0) and with it in each candidate cluster (rows
+    1..K_d), so one marginal_loglik call scores all of them; blocks the
+    entity does not touch are equal in every row and difference to exactly 0.
     """
     n_p, K = st.counts[domain].shape
     liks = st.likelihoods()
-    ar = torch.arange(K, device=st.device)
     chain = torch.arange(n_p, device=st.device)
     old = st.assignments[domain][:, e].long()
     delta, moves = 0.0, []
     for p in preps:
-        lo, hi, base, coef = p.bins(st.assignments, e)
+        lo, hi, base, _ = p.bins(st.assignments, e)
         n_axes = len(st.rel_domains[p.rid])
-        base = base + (chain * p.total)[:, None]  # flat ids over the P stacked grids
-        keys = (base[..., None] + coef[:, None] * ar + ((chain * K)[:, None, None] + ar + 1) * p.total)
-        txs = {}
-        cand = {}
+        n_cls = p.place.shape[0]
+        ids = base + p.cls[lo:hi] * p.total + (chain * (n_cls * p.total))[:, None]
+        by_base = segment.segments(ids.reshape(-1), n_p * n_cls * p.total)
+        placed, cand = {}, {}
         for k, v in st.suffstats[p.rid].items():
             event = v.shape[1 + n_axes:]
-            s = v.view(n_p * p.total, *event)
+            s = v.view(n_p, p.total, *event)
             t = p.payload[k][lo:hi]
-            txs[k] = t.expand(n_p, *t.shape).reshape(-1, *event)
-            s.index_add_(0, (base + coef * old[:, None]).reshape(-1), txs[k], alpha=-1)
-            d_k = torch.zeros((n_p * (K + 1) * p.total, *event), dtype=s.dtype, device=s.device)
-            d_k.index_add_(0, keys.reshape(-1), t[None, :, None].expand(n_p, -1, K, *event).reshape(-1, *event))
-            cand[k] = s.view(n_p, 1, p.total, *event) + d_k.view(n_p, K + 1, p.total, *event)
+            sums = by_base.sum(t.expand(n_p, *t.shape).reshape(-1, *event)).view(n_p, n_cls * p.total, *event)
+            at = sums[:, p.place.view(-1)].view(n_p, n_cls, 1, p.total, *event)
+            d = torch.where(p.sel.view(1, n_cls, K, p.total, *(1,) * len(event)), at, 0).sum(1)  # classes in order
+            placed[k] = d
+            s -= d[chain, old]
+            cand[k] = torch.cat([s[:, None], s[:, None] + d], 1)
         hyper = {k: v.reshape(n_p, 1, 1, *v.shape[1:]) for k, v in st.hypers[p.rid].items()}
         ml = liks[p.rid].marginal_loglik(hyper, cand)
         delta = delta + (ml[:, 1:] - ml[:, :1]).sum(-1)
-        moves.append((base, coef, txs))
+        moves.append(placed)
     counts = st.counts[domain]
     counts.view(-1).index_add_(0, chain * K + old, torch.full((n_p,), -1, dtype=counts.dtype, device=counts.device))
     alpha = st.cluster_hps[domain]["alpha"][:, None]
@@ -229,13 +256,12 @@ def _remove_and_score(st: IRMState, preps, domain: int, e: int):
 def _add(st: IRMState, preps, domain: int, e: int, gid, moves) -> None:
     """Seat entity e of `domain` at cluster gid [P] (device) in every chain."""
     n_p, K = st.counts[domain].shape
-    for p, (base, coef, txs) in zip(preps, moves):
+    chain = torch.arange(n_p, device=st.device)
+    for p, placed in zip(preps, moves):
         n_axes = len(st.rel_domains[p.rid])
         for k, v in st.suffstats[p.rid].items():
-            s = v.view(n_p * p.total, *v.shape[1 + n_axes:])
-            s.index_add_(0, (base + coef * gid[:, None]).reshape(-1), txs[k])
+            v.view(n_p, p.total, *v.shape[1 + n_axes:]).add_(placed[k][chain, gid])
     counts = st.counts[domain]
-    chain = torch.arange(n_p, device=st.device)
     counts.view(-1).index_add_(0, chain * K + gid, torch.ones(n_p, dtype=counts.dtype, device=counts.device))
     st.assignments[domain][:, e] = gid
 
@@ -313,9 +339,33 @@ def _theta_at_cells(theta, rel_domains, assignments, indices, free_axis):
     return {k: gather(v) for k, v in theta.items()}
 
 
+def _table_layout(view, rel_domains, axis: int, n_d: int, chunk: int):
+    """The blocked table's cell order for one axis of one relation: (order,
+    [(lo, hi, Segments)]). order [M] int32 lists the cells by the entity on
+    `axis` (row order within an entity, masked and padding cells last); each
+    chunk of at most `chunk` cells of that order carries its
+    `utils.segment.Segments` over the n_d entities. Built on the device with
+    no host read at first use and kept in `view.cell_orders`, as the
+    entities of a view's cells never change."""
+    key = (tuple(rel_domains), int(axis), int(n_d), int(chunk))
+    hit = view.cell_orders.get(key)
+    if hit is not None:
+        return hit
+    ent = torch.where(view.mask > 0, view.indices[:, axis], n_d).to(torch.int32)
+    ent, order = torch.sort(ent, stable=True)
+    m = ent.shape[0]
+    hit = (order.to(torch.int32), [(lo, min(m, lo + chunk), segment.sorted_segments(ent[lo:lo + chunk], n_d))
+                                   for lo in range(0, m, chunk)])
+    view.cell_orders[key] = hit
+    return hit
+
+
 def _domain_loglik_table(state: IRMState, views, thetas, domain: int):
     """[N_d, K_d] sum over relations and axes of per-cell logpdf contributions,
-    built over chunks of cells of at most TABLE_ELEMS / K_d cells."""
+    built over chunks of at most TABLE_ELEMS / K_d cells taken in entity
+    order (`_table_layout`), each chunk's rows summed by
+    `utils.segment.Segments` and added to the table in chunk order: every
+    entry sums in an order fixed by the view, with no atomics."""
     n_d = state.assignments[domain].shape[-1]
     K = state.counts[domain].shape[-1]
     liks = state.likelihoods()
@@ -327,12 +377,15 @@ def _domain_loglik_table(state: IRMState, views, thetas, domain: int):
         for axis, dom in enumerate(doms):
             if dom != domain:
                 continue
-            for lo in range(0, view.indices.shape[0], chunk):
-                ind = view.indices[lo:lo + chunk]
+            order, chunks = _table_layout(view, doms, axis, n_d, chunk)
+            for lo, hi, seg in chunks:
+                cells = order[lo:hi]
+                # a column at a time: index_select of the rows of a row-major [M, arity]
+                # tensor (as `shard_cells` makes) is many times slower on the card
+                ind = view.indices.t().index_select(1, cells).t()
                 th = _theta_at_cells(thetas[r], doms, state.assignments, ind, axis)
-                lp = liks[r].logpdf(th, view.values[lo:lo + chunk, None])
-                lp = lp * view.mask[lo:lo + chunk, None].to(lp.dtype)
-                table.index_add_(0, ind[:, axis], lp)
+                lp = liks[r].logpdf(th, view.values.index_select(0, cells)[:, None])
+                table += seg.sum(lp * view.mask.index_select(0, cells)[:, None].to(lp.dtype))
     return table
 
 
@@ -447,10 +500,10 @@ def make_sharded_sweep(mesh, state: IRMState, views):
     the data ranks (one all_reduce a domain) and so is every relation's
     suffstat block at the end (one all_reduce). The assignments are the
     same on every rank, and at one data rank the sweep is `sweep` bit for
-    bit (on a card under `torch.use_deterministic_algorithms(True)`: the
-    table's `index_add_` of float logpdfs otherwise adds in another order
-    each call, in `sweep` too). A domain on two axes of one relation (a self-relation) needs
-    `sweep`'s sequential loop over all its cells: refused (ValueError).
+    bit (the table and the suffstats are order-fixed segment sums, and the
+    padding cells of `shard_cells` are dropped from them). A domain on two
+    axes of one relation (a self-relation) needs `sweep`'s sequential loop
+    over all its cells: refused (ValueError).
     """
     if any(_self_relational(state, d) for d in range(state.ndomains)):
         raise ValueError(

@@ -11,10 +11,10 @@ mixture state (assignments [N_d] int32, counts [K_d] int32, a 0-d alpha),
 and every relation keeps its suffstats as dense cluster-block tensors of
 shape [K_a, K_b, ...] (one slot a cluster tuple; empty blocks hold zero
 stats, which score 0 under every conjugate marginal, so nothing needs a
-mask). A suffstat rebuild is one `index_add_` a leaf over the flat COO cell
-axis into the flat K-grid. The state's tensors live on the device of the
-relation views; its floats follow the first view's values where those are
-floating, else float32.
+mask). A suffstat rebuild is one order-fixed segment sum (`utils.segment`)
+a leaf over the observed COO cells into the flat K-grid. The state's
+tensors live on the device of the relation views; its floats follow the
+first view's values where those are floating, else float32.
 """
 
 from __future__ import annotations
@@ -30,6 +30,10 @@ from common_tpu_torch import state as mix_state
 from common_tpu_torch import validator
 from common_tpu_torch.likelihoods import base as lik_base
 from common_tpu_torch.models import model_descriptor
+from common_tpu_torch.utils import segment
+
+
+STATS_CELLS = 1 << 22  # cells of one chunk of a suffstat rebuild
 
 
 # ---------------------------------------------------------------------------
@@ -99,20 +103,22 @@ class RelView:
 
     It also keeps, per (relation domains, domain), the host-built index from
     each entity to the observed cells that touch it (`kernels.entity_cells`),
-    so a chain builds it once.
+    and per axis the blocked table's cell order (`cell_orders`,
+    `kernels._table_layout`), so a chain builds each once.
     """
 
     indices: torch.Tensor
     values: torch.Tensor
     mask: torch.Tensor
     entity_cells: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
+    cell_orders: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False)
 
 
 def as_views(views: Sequence, device="cuda") -> Tuple[RelView, ...]:
     """Coerce sparse_ndarray_dataviews (or anything with .indices/.values/
     .mask) into RelViews. Tensors stay on their device; numpy leaves go to
     `device`, the card unless the caller names another. A dataview's
-    RelView shares its `entity_cells` cache."""
+    RelView shares its `entity_cells` and `cell_orders` caches."""
     out = []
     for v in views:
         if isinstance(v, RelView):
@@ -123,8 +129,9 @@ def as_views(views: Sequence, device="cuda") -> Tuple[RelView, ...]:
             torch.as_tensor(v.indices, device=dev).long(),
             torch.as_tensor(v.values, device=dev),
             torch.as_tensor(v.mask, device=dev).float(),
-            # a dataview's own index cache, so converting it again loses nothing
+            # a dataview's own caches, so converting it again loses nothing
             getattr(v, "entity_cells", {}),
+            getattr(v, "cell_orders", {}),
         ))
     return tuple(out)
 
@@ -189,17 +196,21 @@ def _float_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def compute_relation_stats(lik, hyper, rel_domains, assignments, view, k_maxes):
-    """Suffstat block tensor [K_a, K_b, ...] from scratch: one `index_add_`
-    a leaf into the flat K-grid (no bincount, so no host read)."""
+    """Suffstat block tensor [K_a, K_b, ...] from scratch: over chunks of at
+    most STATS_CELLS cells (so the sort's memory stays bounded), one sort of
+    the chunk's observed cells by flat K-grid block, then an order-fixed
+    segment sum a leaf (`utils.segment`), the chunks added in order: no
+    atomics and no host read. Masked and padding cells are dropped."""
     shape = tuple(k_maxes[d] for d in rel_domains)
     total = int(np.prod(shape))
-    bins = _cell_bins(rel_domains, assignments, view.indices, k_maxes)
-    txs = lik.tx(hyper, view.values, view.mask)
-    out = {}
-    for k, t in txs.items():
-        flat = torch.zeros((total, *t.shape[1:]), dtype=t.dtype, device=t.device)
-        out[k] = flat.index_add_(0, bins, t).reshape(*shape, *t.shape[1:])
-    return out
+    out = None
+    for lo in range(0, max(1, view.indices.shape[0]), STATS_CELLS):
+        cut = slice(lo, lo + STATS_CELLS)
+        bins = _cell_bins(rel_domains, assignments, view.indices[cut], k_maxes)
+        blocks = segment.segments(torch.where(view.mask[cut] > 0, bins, total), total)
+        part = {k: blocks.sum(t) for k, t in lik.tx(hyper, view.values[cut], view.mask[cut]).items()}
+        out = part if out is None else {k: out[k] + part[k] for k in out}
+    return {k: v.reshape(*shape, *v.shape[1:]) for k, v in out.items()}
 
 
 def initialize(

@@ -369,3 +369,36 @@ def test_cuda_cavi_step_matches_the_cpu(cuda_device):
         for leaf, b in b_f.items():
             a = a_f[leaf].double().cpu()
             assert ((a - b).abs() <= 1e-3 * b.abs() + 1e-4 * b.abs().max()).all(), leaf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,event,n", [(1 << 20, (32,), 4097), (1 << 22, (), 1024), (100_003, (3, 2), 7)])
+def test_cuda_segment_sum_replays_and_never_waits(cuda_device, rows, event, n):
+    """`utils.segment.segment_sum` on the card, at an IRM table chunk's shape
+    (1M x 32 into 4096 entities and a dropped bin), a restat's (4M scalars
+    into 1024 blocks) and a ragged one: two calls equal bit for bit, no
+    host wait under set_sync_debug_mode("error"), the CPU's float32 sum of
+    the same rows equal bit for bit (one order on both), and float64's
+    within float32's rounding."""
+    from common_tpu_torch.utils import segment
+
+    r = np.random.default_rng(0)
+    ids = torch.from_numpy(np.sort(r.integers(0, n + 1, rows)))  # long runs, and dropped rows
+    values = torch.from_numpy(r.normal(size=(rows, *event)).astype(np.float32))
+    ids_d, values_d = ids.to(cuda_device), values.to(cuda_device)
+    segment.segment_sum(values_d, ids_d, n)  # first use: library set-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = segment.segment_sum(values_d, ids_d, n)
+        b = segment.segment_sum(values_d, ids_d, n)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), segment.segment_sum(values, ids, n))
+    kept, x = ids[ids < n], values[ids < n].double()
+    want = torch.zeros((n, *event), dtype=torch.float64).index_add_(0, kept, x)
+    size = torch.zeros((n, *event), dtype=torch.float64).index_add_(0, kept, x.abs())
+    # two levels of at most 64 and rows / 64 + 1 adds: (64 + 4097) float32 roundings of sum |x| at worst
+    assert ((a.cpu().double() - want).abs() <= 4161 * 2.0 ** -24 * size).all()

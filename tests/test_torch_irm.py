@@ -8,7 +8,8 @@ dataview must agree exactly; the suffstat block tensors, the scores
 (`jax.enable_x64`) on one set of assignments, for bb, gp and nich relations
 in each of a bipartite relation, a self-relation and a three-axis relation;
 the blocked sweep's [N_d, K_d] table to the same on one theta carried
-across as numpy; the collapsed step's [K_d] conditional to the JAX
+across as numpy (also on a ragged relation whose chunks of cells end inside
+an entity's cells, and the suffstats rebuilt in chunks of 4 cells); the collapsed step's [K_d] conditional to the JAX
 package's `score_joint` over the candidate assignments, at atol 1e-4 in
 log space. The JAX package computes some pieces in float32 even under x64
 (each likelihood's tx and logpdf cast cell values to it, and the CRP EPPF
@@ -215,6 +216,22 @@ def test_stats_scores_and_prediction_match_jax_in_float64(case):
         np.testing.assert_allclose(miss.sum(-1).numpy(), 1.0, rtol=1e-12)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stats_in_chunks_of_cells_match_jax(case, monkeypatch):
+    """The suffstat rebuild over chunks of 4 cells (the chunk sums added in
+    order) against the JAX package's at rtol 1e-6 in float64; bb's exactly."""
+    names, rels, z = _problem(case, seed=7)
+    with jax.enable_x64(True):
+        want = _jleaves(_jax_state(names, rels, z)[1])["suffstats"]
+    monkeypatch.setattr(irm.state, "STATS_CELLS", 4)
+    _, own = _port_state(names, rels, z)
+    for name, got, exp in zip(names, own.suffstats, want):
+        for k in exp:
+            if name == "bb":
+                np.testing.assert_array_equal(got[k].numpy(), exp[k], err_msg=k)
+            np.testing.assert_allclose(got[k].numpy(), exp[k], rtol=1e-6, atol=1e-6, err_msg=k)
+
+
 def _allowed(counts_minus):
     """Candidate slots of the collapsed step: every active slot, and the first empty one."""
     active = counts_minus > 0
@@ -275,6 +292,47 @@ def test_domain_loglik_table_matches_jax_on_one_theta(case, monkeypatch):
         got = kernels._domain_loglik_table(s, irm.as_views(views), tth, d)
         assert got.shape == (SIZES[d], K_MAXES[d])
         np.testing.assert_allclose(got.numpy(), want[d], **F64)
+
+
+def _theta(name, shape, r):
+    if name == "bb":
+        return {"p": r.uniform(0.05, 0.95, shape)}
+    if name == "gp":
+        return {"lam": r.uniform(0.3, 4.0, shape)}
+    return {"mu": r.normal(size=shape), "var": r.uniform(0.3, 2.0, shape)}
+
+
+@pytest.mark.parametrize("name,table_elems", [("gp", 8), ("nich", 20), ("bb", 1 << 25)])
+def test_ragged_domain_loglik_table_matches_jax(name, table_elems, monkeypatch):
+    """A ragged sparse relation (7 x 9, 40% of cells missing, row 2 and
+    column 5 with none observed): each domain's table against the JAX
+    package's at rtol 1e-6 in float64, with chunks of 2 cells, of 5 and of
+    all cells, so chunk edges fall inside entities' cells; the empty
+    entities' rows are exactly 0."""
+    r = np.random.default_rng(6)
+    rel = _values(name, (7, 9), r)
+    missing = r.random((7, 9)) < 0.4
+    missing[2, :] = True
+    missing[:, 5] = True
+    z = [r.integers(0, 4, 7).astype(np.int32), r.integers(0, 4, 9).astype(np.int32)]
+    theta = _theta(name, (4, 4), r)
+    with jax.enable_x64(True):
+        jdefn = jirm.model_definition([7, 9], [((0, 1), getattr(jmodels, name))], k_max=4)
+        jviews = [j_sparse(dense=rel, missing_mask=missing)]
+        js = jirm.initialize(jdefn, jviews, jax.random.key(0), cluster_hps=[{"alpha": 1.0}] * 2,
+                             relation_hps=[HYPERS[name]], domain_assignments=z)
+        jth = ({k: jnp.asarray(v) for k, v in theta.items()},)
+        want = [np.asarray(jirm.kernels._domain_loglik_table(js, jirm.as_views(jviews), jth, d)) for d in range(2)]
+    defn = irm.model_definition([7, 9], [((0, 1), getattr(models, name))], k_max=4)
+    views = irm.as_views([sparse_ndarray_dataview(dense=rel, missing_mask=missing, device="cpu")])
+    s = irm.initialize(defn, views, _gen(0), cluster_hps=[{"alpha": 1.0}] * 2,
+                       relation_hps=[HYPERS[name]], domain_assignments=z)
+    monkeypatch.setattr(kernels, "TABLE_ELEMS", table_elems)
+    tth = ({k: torch.from_numpy(v) for k, v in theta.items()},)
+    for d, empty in ((0, 2), (1, 5)):
+        got = kernels._domain_loglik_table(s, views, tth, d)
+        np.testing.assert_allclose(got.numpy(), want[d], **F64)
+        assert torch.equal(got[empty], torch.zeros(4, dtype=got.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -82,7 +82,7 @@ def test_kernels_and_utils_export_the_reference_names():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/kernel_turns.py",
                                     "scripts/assign_tilings.py", "scripts/linear_variants.py",
-                                    "scripts/irm_determinism.py"])
+                                    "scripts/irm_determinism.py", "scripts/segment_probes.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card import neither JAX nor the JAX package."""
     import ast
