@@ -226,6 +226,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    cards, (b) over NCCL on min(count, 4) cards; otherwise a line says one
    card was found.
 
+14. The port bench's smoke tiers (run after phase 13, before phase 6):
+   `common_tpu_torch.bench.main(["--smoke"])` in-process, the kernel counts
+   set to 0 just before: 20,000 x 16, K_max=16, 10 sweeps by the plain
+   sweep, then by the fused one. Checks exit 0, bench.py's keys on the last
+   line (`mfu` and `peak_tflops` in place of `mfu_vs_bf16_peak`, the
+   headline last, `device` the card's line), mfu in [0, 1), and kernels 1
+   and 2 launched once a sweep of the fused tier's warm-up and timed runs,
+   no other kernel.
+
 Replay checks (phases 3, 4, 5, 7, 9, 10 and 11): a path run twice from one
 start state and one generator seed must end equal bit for bit in every
 leaf (assignments, counts, every stats leaf, the hypers, and a runner's
@@ -3457,6 +3466,53 @@ def phase_sharded_families() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the port bench's smoke tiers, in-process
+# ---------------------------------------------------------------------------
+BENCH_KEYS14 = ("metric", "value", "unit", "ess_per_s", "k_active", "tflops", "mfu", "peak_tflops",
+                "device", "vs_baseline", "summary", "tiers", "fused_tier", "partial", "total_s")
+
+
+def phase_bench_smoke(card: str) -> dict:
+    """`python -m common_tpu_torch.bench --smoke` through its `main`: the
+    first ladder shape by the plain sweep, then by the fused one (kernels 1
+    and 2). Checks exit 0, the last line's layout (bench.py's keys with `mfu`
+    and `peak_tflops`, the headline last, the card's line as `device`), and
+    the fused tier's launches of kernels 1 and 2, one each a sweep of its
+    warm-up and its timed run."""
+    import contextlib
+    import io
+
+    from common_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    _zero_launches()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--smoke"])
+    launched = _launches()
+    wall = time.perf_counter() - t0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    fused = line["fused_tier"]
+    log(f"bench --smoke: exit {rc} in {wall:.1f} s; {line['metric']}: {line['value']} {line['unit']}, fused tier "
+        f"{fused['sweeps_per_s']:.2f} sweeps/s, mfu {line['mfu']}, device {line['device']!r}; launches {launched}, "
+        f"the fused tier's {fused['launches']}")
+    require(rc == 0 and line["partial"] is False, f"bench --smoke exited {rc}")
+    missing = [k for k in BENCH_KEYS14 if k not in line]
+    require(not missing and "mfu_vs_bf16_peak" not in line, f"bench line: keys missing {missing}")
+    require(list(line)[-3:] == ["unit", "value", "metric"], f"bench line ends {list(line)[-3:]}")
+    require(line["device"] == card and line["peak_tflops"] == bench.PEAK_TFLOPS, "bench line: device or peak")
+    require(line["value"] > 0 and 0 <= line["mfu"] < 1, "bench line: value or mfu")
+    want = 2 * fused["sweeps"]
+    require(fused["launches"]["gaussian_assign"] == want and fused["launches"]["scatter_stats"] == want,
+            f"fused tier launches {fused['launches']} != {want} of kernels 1 and 2")
+    require(launched["fused_gaussian_assign"] == want and launched["fused_scatter_stats"] == want
+            and not launched["fused_gaussian_assign_chains"] and not launched["fused_linear_assign"],
+            f"bench --smoke launches {launched}")
+    return {"wall_s": wall, "value": line["value"], "fused_sweeps_per_s": fused["sweeps_per_s"],
+            "mfu": line["mfu"], "launches": launched}
+
+
 def main() -> int:
     import torch
 
@@ -3478,6 +3534,7 @@ def main() -> int:
         irm_out = phase_irm()
         sharded_out = phase_sharded(result)
         families_out = phase_sharded_families()
+        bench_out = phase_bench_smoke(env["card"])
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3485,7 +3542,8 @@ def main() -> int:
     kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
                     "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out,
-                    "sharded": sharded_out, "sharded_families": families_out, "card": env["card"]}))
+                    "sharded": sharded_out, "sharded_families": families_out, "bench_smoke": bench_out,
+                    "card": env["card"]}))
     log(json.dumps({"sharded_launches": {
         "sweep_world_size_1": sharded_out["launches_ws1"],
         "sweep_gloo_one_sweep_a_rank": {shape: [r[shape]["launches_one_sweep"] for r in sharded_out["gloo_2"]]

@@ -402,3 +402,64 @@ def test_cuda_segment_sum_replays_and_never_waits(cuda_device, rows, event, n):
     size = torch.zeros((n, *event), dtype=torch.float64).index_add_(0, kept, x.abs())
     # two levels of at most 64 and rows / 64 + 1 adds: (64 + 4097) float32 roundings of sum |x| at worst
     assert ((a.cpu().double() - want).abs() <= 4161 * 2.0 ** -24 * size).all()
+
+
+# each bench tier at a small shape on the card, and the kernels its path launches
+BENCH_TIERS = {
+    "run_tier(fused)": (lambda b, dev: b.run_tier(4096, 32, 16, 3, 0, kernel="fused", heldout=64, device=dev),
+                        {"gaussian_assign": 6, "scatter_stats": 6}),
+    "run_ess_tier": (lambda b, dev: b.run_ess_tier(2048, 16, 8, 0, sweeps=25, n_seeds=2, heldout=64, device=dev),
+                     {"gaussian_assign": 50, "scatter_stats": 50}),
+    "run_chains_headline_tier": (lambda b, dev: b.run_chains_headline_tier(0, 2048, 16, 8, sweeps=2, repeats=1,
+                                                                           device=dev),
+                                 {"gaussian_assign_chains": 4}),
+    "run_chain_scaling_tier": (lambda b, dev: b.run_chain_scaling_tier(0, n=2048, d=8, k_max=8, sweeps=2,
+                                                                       chain_counts=(1, 2), repeats=1, device=dev),
+                               {"gaussian_assign_chains": 8}),
+    "run_config2_tier": (lambda b, dev: b.run_config2_tier(0, n=2048, d=16, k_max=8, sweeps=2, heldout=64,
+                                                           device=dev),
+                         {"linear_assign": 4}),
+    "run_smc_tier": (lambda b, dev: b.run_smc_tier(2048, 8, 8, 4, 0, block=512, warmup=64, heldout=64,
+                                                   device=dev),
+                     {"scatter_stats": 2 * 4 * 3}),
+    "run_config3_tier": (lambda b, dev: b.run_config3_tier(0, n=512, k_max=8, sweeps=1, heldout=32, device=dev), {}),
+    "run_hdp_tier": (lambda b, dev: b.run_hdp_tier(256, 10, 6, 40, 2, 0, doc_chunk=64, heldout_frac=0.1,
+                                                   device=dev), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(BENCH_TIERS))
+def test_cuda_bench_tier_launches_its_kernels(cuda_device, tier):
+    """A bench tier on the card launches exactly its path's kernels: the fused
+    sweep kernels 1 and 2 a sweep (warm-up and timed run), path A kernel 4 a
+    sweep (at these widths its restat is the wide product, not kernel 2),
+    config 2 kernel 3 an iteration of its fused variant, config 5 kernel 2
+    three times a block, configs 3 and 4 none."""
+    from common_tpu_torch import bench
+
+    run, want = BENCH_TIERS[tier]
+    out = run(bench, cuda_device)
+    names = ("gaussian_assign", "gaussian_assign_chains", "linear_assign", "scatter_stats")
+    assert out["launches"] == {name: want.get(name, 0) for name in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["blocked", "fused"])
+def test_cuda_bench_timed_run_never_waits(cuda_device, kernel):
+    """A bench tier's timed run (sweeps with the score and k_active trace)
+    makes every launch without a host wait, so the synchronize that ends
+    its window is the run's only one."""
+    from common_tpu_torch import bench
+
+    setup, run = bench.build_tier_fn(4096, 32, 16, 3, kernel, multi_stat=True, device=cuda_device)
+    data, _, s = setup(0, 17)
+    run(data, s, bench._generator(cuda_device, 0, 17, 2))  # the warm-up: one-time set-up may wait
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, trace = run(data, s, bench._generator(cuda_device, 0, 17, 2))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trace.shape == (3, 2) and bool(torch.isfinite(trace).all())
+    assert int(out.counts.sum()) == 4096
