@@ -234,6 +234,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    headline last, `device` the card's line), mfu in [0, 1), and kernels 1
    and 2 launched once a sweep of the fused tier's warm-up and timed runs,
    no other kernel.
+15. Every Beta parameter inside (0, 1) on the card (run after phase 14,
+   before phase 6): `sample_params` of bb, bnb, bbv and bbnc on CUDA
+   tensors, 10,000 slots of 10^6 heads (bnb: zero counts) at hyper beta
+   0.5, where a plain `rng.beta` from the same generator state puts about
+   1 draw in 5 at exactly 1.0: no draw at 0 or 1 (those at the largest
+   float below 1) and a finite score table; then 10 blocked sweeps of a
+   DP mixture of a nich column (two clusters at -5 and 5, 500,000 rows
+   each) and an all-heads bb column, from the planted assignment: finite
+   scores and k_active above 1 after every sweep. No kernel runs.
 
 Replay checks (phases 3, 4, 5, 7, 9, 10 and 11): a path run twice from one
 start state and one generator seed must end equal bit for bit in every
@@ -3469,6 +3478,10 @@ def phase_sharded_families() -> dict:
 # ---------------------------------------------------------------------------
 # phase 14: the port bench's smoke tiers, in-process
 # ---------------------------------------------------------------------------
+# phase 15: slots a likelihood, a slot's heads (bnb: zero counts), the hyper beta, bbv's columns;
+# the all-heads DP mixture's rows, sweeps and K_max
+DRAWS15, HEADS15, BETA15, D15 = 10_000, 1e6, 0.5, 100
+N15, SWEEPS15, K15 = 1_000_000, 10, 8
 BENCH_KEYS14 = ("metric", "value", "unit", "ess_per_s", "k_active", "tflops", "mfu", "peak_tflops",
                 "device", "vs_baseline", "summary", "tiers", "fused_tier", "partial", "total_s")
 
@@ -3513,6 +3526,105 @@ def phase_bench_smoke(card: str) -> dict:
             "mfu": line["mfu"], "launches": launched}
 
 
+def _extreme15(name: str, dev):
+    """(likelihood, hyper, stats, rows to score, (a, b) of its Beta draw) at phase 15's counts."""
+    import torch
+
+    from common_tpu_torch import likelihoods as lik
+
+    def full(*shape, value):
+        return torch.full(shape, float(value), device=dev)
+
+    one, beta = torch.tensor(1.0, device=dev), torch.tensor(BETA15, device=dev)
+    if name == "bbv":
+        hyper = {"alpha": full(D15, value=1.0), "beta": full(D15, value=BETA15)}
+        stats = {"n": full(DRAWS15 // D15, value=HEADS15), "heads": full(DRAWS15 // D15, D15, value=HEADS15)}
+        X = torch.stack([full(D15, value=1.0), full(D15, value=0.0)])
+    elif name == "bnb":
+        hyper = {"alpha": one, "beta": beta, "r": one}
+        stats = {"n": full(DRAWS15, value=HEADS15), "sum_x": full(DRAWS15, value=0.0),
+                 "sum_log_coef": full(DRAWS15, value=0.0)}
+        X = torch.tensor([0.0, 3.0], device=dev)
+    else:
+        hyper = {"alpha": one, "beta": beta}
+        stats = {"n": full(DRAWS15, value=HEADS15), "heads": full(DRAWS15, value=HEADS15)}
+        if name == "bbnc":
+            stats["p"] = full(DRAWS15, value=0.5)
+        X = torch.tensor([1.0, 0.0], device=dev)
+    model = getattr(lik, name)
+    if name == "bbnc":
+        ab = (hyper["alpha"] + stats["heads"], hyper["beta"] + stats["n"] - stats["heads"])
+    else:
+        post = model.posterior_hyper(hyper, stats)
+        ab = (post["alpha"], post["beta"])
+    return model, hyper, stats, X, ab
+
+
+def phase_support(dev=None) -> dict:
+    """Phase 15: every Beta parameter the port draws lies inside (0, 1), on
+    the card. Each likelihood's `sample_params` against a plain `rng.beta`
+    from the same generator state (which must reach 1.0 there, or the check
+    tests nothing), then 10 blocked sweeps of a DP mixture whose bb column
+    is all heads: before `rng.beta_open` an unclamped draw of 1.0 scored
+    every head NaN in its slot and argmax moved every row there."""
+    import torch
+
+    from common_tpu_torch import models
+    from common_tpu_torch import state as st
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.rng import beta
+
+    dev = dev or torch.device("cuda")
+    t0 = time.perf_counter()
+    cap = 1.0 - 2.0 ** -24
+    draws = {}
+    for name in ("bb", "bnb", "bbv", "bbnc"):
+        model, hyper, stats, X, (a, b) = _extreme15(name, dev)
+        theta = model.sample_params(_generator15(dev), hyper, stats)
+        raw = beta(a, b, _generator15(dev))
+        p = theta["p"]
+        table = model.logpdf(theta, X[:, None]) if name == "bbnc" else model.logpdf_batch(
+            theta, X, torch.ones(X.shape[0], device=dev))
+        rec = {"draws": p.numel(), "at_0_or_1": int(((p <= 0) | (p >= 1)).sum()), "at_cap": int((p == cap).sum()),
+               "plain_at_1": int((raw == 1).sum()), "capped_where_plain_1": bool((p[raw == 1] == cap).all()),
+               "table_finite": bool(torch.isfinite(table).all())}
+        log(f"phase 15 {name}: {rec['at_0_or_1']} of {rec['draws']} draws at 0 or 1, {rec['at_cap']} at the "
+            f"largest float below 1; a plain rng.beta from the same generator state: {rec['plain_at_1']} at 1.0; "
+            f"score table finite: {rec['table_finite']}")
+        require(rec["plain_at_1"] > 0, f"phase 15 {name}: no plain draw reached 1.0, so the check tests nothing")
+        require(rec["at_0_or_1"] == 0 and rec["capped_where_plain_1"] and rec["table_finite"],
+                f"phase 15 {name}: a draw on the boundary or a score not finite: {rec}")
+        draws[name] = rec
+
+    g = _generator15(dev)
+    z = (torch.arange(N15, device=dev) >= N15 // 2).to(torch.int32)
+    x = torch.where(z > 0, 5.0, -5.0) + torch.randn(N15, generator=g, device=dev)
+    ones = torch.ones(N15, device=dev)
+    data = ((x, ones), (ones.clone(), ones))
+    defn = st.model_definition(N15, [models.nich, models.bb], k_max=K15)
+    s = st.initialize(defn, data, g, cluster_hp={"alpha": 1.0}, feature_hps=[None, {"alpha": 1.0, "beta": BETA15}],
+                      assignment=z)
+    k_trace, scores = [], []
+    for _ in range(SWEEPS15):
+        s = blocked.sweep(s, data, g)
+        k_trace.append(int((s.counts > 0).sum()))
+        scores.append(float(st.score_joint(s)))
+    wall = time.perf_counter() - t0
+    log(f"phase 15 all-heads DP mixture, {N15} rows, {SWEEPS15} blocked sweeps: k_active {k_trace}")
+    log(f"phase 15 all-heads DP mixture: score_joint {scores[0]:.6g} .. {scores[-1]:.6g}, all finite: "
+        f"{all(np.isfinite(scores))}")
+    log(f"phase 15 wall time {wall:.1f} s")
+    require(min(k_trace) > 1, f"phase 15: the all-heads mixture fell to one cluster: k_active {k_trace}")
+    require(all(np.isfinite(scores)), f"phase 15: score_joint not finite: {scores}")
+    return {"draws": draws, "k_trace": k_trace, "score_joint": scores, "wall_s": wall}
+
+
+def _generator15(dev):
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(SEED + 15)
+
+
 def main() -> int:
     import torch
 
@@ -3535,6 +3647,7 @@ def main() -> int:
         sharded_out = phase_sharded(result)
         families_out = phase_sharded_families()
         bench_out = phase_bench_smoke(env["card"])
+        support = phase_support()
         collapsed = phase_collapsed()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3543,7 +3656,7 @@ def main() -> int:
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
                     "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out,
                     "sharded": sharded_out, "sharded_families": families_out, "bench_smoke": bench_out,
-                    "card": env["card"]}))
+                    "support": support, "card": env["card"]}))
     log(json.dumps({"sharded_launches": {
         "sweep_world_size_1": sharded_out["launches_ws1"],
         "sweep_gloo_one_sweep_a_rank": {shape: [r[shape]["launches_one_sweep"] for r in sharded_out["gloo_2"]]

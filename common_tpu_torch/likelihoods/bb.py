@@ -14,7 +14,7 @@ import torch
 
 from common_tpu_torch.likelihoods import base
 from common_tpu_torch.likelihoods.bbv import betaln
-from common_tpu_torch.rng import beta as beta_draw
+from common_tpu_torch.rng import beta_open
 
 
 class BB(base.Likelihood):
@@ -72,8 +72,9 @@ class BB(base.Likelihood):
         return x * (torch.log(a + h) - denom) + (1.0 - x) * (torch.log(b + n - h) - denom)
 
     def sample_params(self, generator, hyper, stats):
+        """p ~ Beta(alpha + heads, beta + n - heads), inside (0, 1) (`rng.beta_open`)."""
         post = self.posterior_hyper(hyper, stats)
-        return {"p": beta_draw(post["alpha"], post["beta"], generator)}
+        return {"p": beta_open(post["alpha"], post["beta"], generator)}
 
     def logpdf(self, theta, x):
         p = theta["p"]

@@ -19,7 +19,7 @@ import torch
 
 from common_tpu_torch.likelihoods import base
 from common_tpu_torch.likelihoods.bbv import betaln
-from common_tpu_torch.rng import beta as beta_draw
+from common_tpu_torch.rng import beta_open
 
 _EPS = 1e-6
 
@@ -50,9 +50,9 @@ class BBNC(base.Likelihood):
         return {"n": m, "heads": m * x.to(dt), "p": torch.zeros_like(m)}  # latent: not additive
 
     def refresh_latents(self, generator, hyper, stats, refresh_mask):
-        """Redraw p ~ Beta(alpha, beta) where refresh_mask is set."""
+        """Redraw p ~ Beta(alpha, beta) where refresh_mask is set, inside (0, 1)."""
         p = stats["p"]
-        fresh = beta_draw(hyper["alpha"].expand_as(p).contiguous(),
+        fresh = beta_open(hyper["alpha"].expand_as(p).contiguous(),
                           hyper["beta"].expand_as(p).contiguous(), generator)
         return {**stats, "p": torch.where(refresh_mask, fresh, p)}
 
@@ -74,10 +74,11 @@ class BBNC(base.Likelihood):
 
     def sample_params(self, generator, hyper, stats):
         # the exact conditional (the model is conjugate analytically): the
-        # exact theta kernel, and the check of the slice kernel
+        # exact theta kernel, and the check of the slice kernel; inside (0, 1)
+        # as every Beta parameter of the package (`rng.beta_open`)
         a = hyper["alpha"] + stats["heads"]
         b = hyper["beta"] + stats["n"] - stats["heads"]
-        return {"p": beta_draw(a, b, generator)}
+        return {"p": beta_open(a, b, generator)}
 
     def logpdf(self, theta, x):
         p = _safe_p(theta["p"])

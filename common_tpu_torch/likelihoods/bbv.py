@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from common_tpu_torch.likelihoods import base
-from common_tpu_torch.rng import beta as beta_draw
+from common_tpu_torch.rng import beta_open
 
 
 def _algdiv(a, b):
@@ -151,17 +151,13 @@ class BBV(base.Likelihood):
         return self.predictive_logpdf(self.predictive(hyper, stats), x.reshape(1, -1))[0]
 
     def sample_params(self, generator, hyper, stats):
-        """p ~ Beta(alpha + heads, beta + n - heads) for every cluster and column.
-
-        The draw is kept inside the open interval (0, 1) of its float type,
-        as `rng.uniform_open` keeps uniforms: with thousands of rows all
-        heads in one column, a Beta draw rounds to exactly 1 often enough
-        that log(1 - p) would be -inf and the score table NaN.
+        """p ~ Beta(alpha + heads, beta + n - heads) for every cluster and column,
+        inside (0, 1) (`rng.beta_open`): with thousands of rows all heads in
+        one column, a Beta draw rounds to exactly 1 often enough that log(1 -
+        p) would be -inf and the score table NaN.
         """
         post = self.posterior_hyper(hyper, stats)
-        p = beta_draw(post["alpha"], post["beta"], generator)
-        fi = torch.finfo(p.dtype)
-        return {"p": p.clamp(fi.tiny, 1.0 - fi.eps / 2)}
+        return {"p": beta_open(post["alpha"], post["beta"], generator)}
 
     def logpdf(self, theta, x):
         p = theta["p"]

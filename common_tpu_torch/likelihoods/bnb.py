@@ -15,8 +15,7 @@ import torch
 
 from common_tpu_torch.likelihoods import base
 from common_tpu_torch.likelihoods.bbv import betaln
-from common_tpu_torch.rng import beta as beta_draw
-from common_tpu_torch.rng import standard_gamma
+from common_tpu_torch.rng import beta_open, standard_gamma
 
 
 def _log_nb_coef(x, r):
@@ -61,9 +60,10 @@ class BNB(base.Likelihood):
         return _log_nb_coef(xf, r) + betaln(a_n + r, b_n + xf) - betaln(a_n, b_n)
 
     def sample_params(self, generator, hyper, stats):
-        """p ~ Beta(alpha + r n, beta + sum_x); r rides along, one per slot."""
+        """p ~ Beta(alpha + r n, beta + sum_x), inside (0, 1) (`rng.beta_open`);
+        r rides along, one per slot."""
         post = self.posterior_hyper(hyper, stats)
-        p = beta_draw(post["alpha"], post["beta"], generator)
+        p = beta_open(post["alpha"], post["beta"], generator)
         return {"p": p, "r": hyper["r"].expand_as(p)}
 
     def logpdf(self, theta, x):

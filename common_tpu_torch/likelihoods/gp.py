@@ -86,8 +86,16 @@ class GP(base.Likelihood):
         )
 
     def sample_params(self, generator, hyper, stats):
+        """lam ~ Gamma(alpha + sum_x, inv_beta + n), at least finfo.tiny.
+
+        The Gamma draw is at least finfo.tiny, but a draw at that floor over
+        a rate above 2^24 (in float32: a small alpha and a cluster of more
+        than 1.7e7 zero counts) underflows to 0, and a zero count would then
+        score 0 * log 0 = NaN.
+        """
         post = self.posterior_hyper(hyper, stats)
-        return {"lam": standard_gamma(post["alpha"], generator) / post["inv_beta"]}
+        lam = standard_gamma(post["alpha"], generator) / post["inv_beta"]
+        return {"lam": lam.clamp_(min=torch.finfo(lam.dtype).tiny)}
 
     def logpdf(self, theta, x):
         lam = theta["lam"]

@@ -113,6 +113,24 @@ def beta(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator) -> torch.
     return g1 / (g1 + g2)
 
 
+def beta_open(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Beta(a, b) draws kept inside the open interval (0, 1) of their float type.
+
+    A `beta` draw rounds to exactly 1 when b is small against a: at a = 0.5
+    + n heads and b = 0.5, 2.5% of float32 draws at n = 12,500 and 20% at
+    n = 10^6. log(1 - p) is then -inf, a Bernoulli score 0 * -inf = NaN,
+    and an argmax takes the first NaN as its maximum, so every row would
+    move into that slot. Each draw is clamped to [finfo.tiny, 1 - finfo.eps
+    / 2] (in float32 the largest float below 1), so the state, a gathered
+    block and a predictive draw all see p inside the support. The cost:
+    log(1 - p) is capped at log(eps / 2), -16.6 in float32, where the exact
+    draw lies closer to 1.
+    """
+    p = beta(a, b, generator)
+    fi = torch.finfo(p.dtype)
+    return p.clamp_(fi.tiny, 1.0 - fi.eps / 2)
+
+
 def host_generator(generator: torch.Generator) -> torch.Generator:
     """A CPU generator seeded by one draw from `generator`.
 

@@ -463,3 +463,34 @@ def test_cuda_bench_timed_run_never_waits(cuda_device, kernel):
         torch.cuda.set_sync_debug_mode(0)
     assert trace.shape == (3, 2) and bool(torch.isfinite(trace).all())
     assert int(out.counts.sum()) == 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bb", "bnb", "bbv", "bbnc"])
+def test_cuda_beta_draw_stays_inside_the_support(cuda_device, name):
+    """On the card, `sample_params` at 10^6 heads (bnb: zero counts) and hyper
+    beta 0.5: a plain `rng.beta` from the same generator state puts some
+    draws at exactly 1.0, `sample_params` none at 0 or 1 (those at the
+    largest float below 1), and its score table is finite."""
+    from common_tpu_torch.rng import beta
+    from torch_support_cases import extreme, scores
+
+    lik, hyper, stats, X, (a, b) = extreme(name, cuda_device)
+    theta = lik.sample_params(torch.Generator(device=cuda_device).manual_seed(0), hyper, stats)
+    raw = beta(a, b, torch.Generator(device=cuda_device).manual_seed(0))
+    p = theta["p"]
+    assert int((raw == 1).sum()) > 0
+    assert bool(((p > 0) & (p < 1)).all())
+    assert torch.equal(p[raw == 1], torch.full_like(p[raw == 1], 1.0 - 2.0 ** -24))
+    assert bool(torch.isfinite(scores(lik, theta, X)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_gamma_draw_is_at_least_tiny(cuda_device):
+    """torch's Gamma sampler on the card clamps its draw at finfo.tiny, as on the CPU."""
+    from common_tpu_torch.rng import standard_gamma
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for dtype in (torch.float32, torch.float64):
+        x = standard_gamma(torch.full((100_000,), 1e-3, dtype=dtype, device=cuda_device), g)
+        assert float(x.min()) == torch.finfo(dtype).tiny
