@@ -39,6 +39,7 @@ from common_tpu_torch.ops.suffstat import fused_scatter_stats
 from common_tpu_torch.parallel.chains import vmap_sweep
 from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, standard_gamma
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.utils import profiling
 
 
 def _require_fp32() -> None:
@@ -259,25 +260,29 @@ def sweep_fused(state: MixtureState, data, generator, fused_restat: bool = True)
     tensors the kernels' plain versions run. fused_restat=False rebuilds
     the niw stats through `restat` (plain tensor ops) instead of the
     suffstat kernel, as in the JAX package; the bbv restat is one product
-    either way.
+    either way. Its phases are the spans `sweep.inputs` (theta and the
+    weights), `sweep.assign` and `sweep.restat`.
     """
     _require_fp32()
     if state.lik_names == ("bbv",):
         return _sweep_fused_bbv(state, data, generator)
     if state.lik_names != ("niw",):
         raise ValueError(f"sweep_fused supports a single niw or bbv feature, got {state.lik_names}")
-    mu, binv, base, logw = fused_assign_inputs(state, data, generator)
+    with profiling.span("sweep.inputs"):
+        mu, binv, base, logw = fused_assign_inputs(state, data, generator)
     x, mask = data[0]
     K = state.k_max
-    z = fused_gaussian_assign(x, mu, binv, base, _device_seed(generator, x.device))
     m = mask.to(x.dtype)
-    z = _prior_fallback(z, logw, m, generator)
-    if not fused_restat:
-        return restat(state, data, z)
-    return dataclasses.replace(
-        state, assignments=z, counts=state_mod._assignment_counts(z, K),
-        stats=(_fused_niw_stats(x, m, z, K),),
-    )
+    with profiling.span("sweep.assign"):
+        z = fused_gaussian_assign(x, mu, binv, base, _device_seed(generator, x.device))
+        z = _prior_fallback(z, logw, m, generator)
+    with profiling.span("sweep.restat"):
+        if not fused_restat:
+            return restat(state, data, z)
+        return dataclasses.replace(
+            state, assignments=z, counts=state_mod._assignment_counts(z, K),
+            stats=(_fused_niw_stats(x, m, z, K),),
+        )
 
 
 def _sweep_fused_bbv(state: MixtureState, data, generator) -> MixtureState:
@@ -286,19 +291,22 @@ def _sweep_fused_bbv(state: MixtureState, data, generator) -> MixtureState:
     The score is affine in the row, so the kernel is `ops/linear_assign.py`;
     the restat needs no scatter-matrix kernel.
     """
-    W, base, logw = linear_assign_inputs(state, data, generator)
+    with profiling.span("sweep.inputs"):
+        W, base, logw = linear_assign_inputs(state, data, generator)
     x, mask = data[0]
     xf = x.to(torch.float32).contiguous()
     K = state.k_max
-    z = fused_linear_assign(xf, W, base, _device_seed(generator, x.device))
     m = mask.to(torch.float32)
-    z = _prior_fallback(z, logw, m, generator)
-    _, onehot = _onehot(z, m, K)
-    stats = {"n": onehot.sum(0), "heads": onehot.T @ xf}
-    return dataclasses.replace(
-        state, assignments=z, counts=state_mod._assignment_counts(z, K),
-        stats=(stats,),
-    )
+    with profiling.span("sweep.assign"):
+        z = fused_linear_assign(xf, W, base, _device_seed(generator, x.device))
+        z = _prior_fallback(z, logw, m, generator)
+    with profiling.span("sweep.restat"):
+        _, onehot = _onehot(z, m, K)
+        stats = {"n": onehot.sum(0), "heads": onehot.T @ xf}
+        return dataclasses.replace(
+            state, assignments=z, counts=state_mod._assignment_counts(z, K),
+            stats=(stats,),
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +403,8 @@ def sweep_chains(states: MixtureState, data, generator, d_max_xx: int = 64,
     The restat takes two wide products for all chains when the [N, D^2]
     features are within budget, and otherwise, per chain, n and sum_x by
     one-hot and sum_xxT by the suffstat kernel (the restat of
-    `sweep_fused`).
+    `sweep_fused`). On the wide and fused routes the phases are the spans
+    `sweep.inputs`, `sweep.assign` and `sweep.restat`, as in `sweep_fused`.
     """
     global _FALLBACK_WARNED
     _require_fp32()
@@ -424,38 +433,42 @@ def sweep_chains(states: MixtureState, data, generator, d_max_xx: int = 64,
     C, K = states.counts.shape
     m = mask.to(x.dtype)
     if fused:
-        mu, minv, base, logw = chain_assign_inputs(states, data, generator)
-        z = fused_gaussian_assign_chains(x, mu, minv, base, _device_seed(generator, x.device), C).T
-        if not assume_dense_mask:
-            g = gumbel((N, C, K), generator, logw.dtype)
+        with profiling.span("sweep.inputs"):
+            mu, minv, base, logw = chain_assign_inputs(states, data, generator)
+        with profiling.span("sweep.assign"):
+            z = fused_gaussian_assign_chains(x, mu, minv, base, _device_seed(generator, x.device), C).T
+            if not assume_dense_mask:
+                g = gumbel((N, C, K), generator, logw.dtype)
+                z_prior = torch.argmax(logw[None] + g, dim=-1).to(torch.int32)
+                z = torch.where(m[:, None] > 0, z, z_prior)
+    else:
+        with profiling.span("sweep.inputs"):
+            theta, logw = _chain_parts(states, generator)
+        with profiling.span("sweep.assign"):
+            logp = _chain_score_table(theta["mu"], theta["prec"], theta["logdet"], logw, x)
+            g = gumbel((N, C, K), generator, logp.dtype)
+            z = torch.argmax(logp + g, dim=-1).to(torch.int32)  # [N, C]
+            # fully-masked rows: assign from the weights alone
             z_prior = torch.argmax(logw[None] + g, dim=-1).to(torch.int32)
             z = torch.where(m[:, None] > 0, z, z_prior)
-    else:
-        theta, logw = _chain_parts(states, generator)
-        logp = _chain_score_table(theta["mu"], theta["prec"], theta["logdet"], logw, x)
-        g = gumbel((N, C, K), generator, logp.dtype)
-        z = torch.argmax(logp + g, dim=-1).to(torch.int32)  # [N, C]
-        # fully-masked rows: assign from the weights alone
-        z_prior = torch.argmax(logw[None] + g, dim=-1).to(torch.int32)
-        z = torch.where(m[:, None] > 0, z, z_prior)
-
-    if xx_bytes <= xx_budget_bytes:
-        # restat: all C chains in two wide products against shared (X, XX)
-        onehot = (z[:, :, None] == torch.arange(K, device=x.device)).to(x.dtype)  # [N, C, K]
-        counts = onehot.sum(0).to(torch.int32)
-        w = (onehot * m[:, None, None]).reshape(N, C * K)
-        xx = (x[:, :, None] * x[:, None, :]).reshape(N, D * D)
-        sum_xxT = (w.T @ xx).reshape(C, K, D, D)
-        stats = {
-            "n": w.sum(0).reshape(C, K),
-            "sum_x": (w.T @ x).reshape(C, K, D),
-            "sum_xxT": 0.5 * (sum_xxT + sum_xxT.transpose(-1, -2)),
-        }
-    else:
-        # [N, D^2] over budget (the fused route at 1M x 256): per chain
-        per_chain = [_fused_niw_stats(x, m, z[:, c].contiguous(), K) for c in range(C)]
-        stats = {leaf: torch.stack([s[leaf] for s in per_chain]) for leaf in per_chain[0]}
-        counts = torch.stack([state_mod._assignment_counts(z[:, c], K) for c in range(C)])
-    return dataclasses.replace(
-        states, assignments=z.T.contiguous(), counts=counts, stats=(stats,),
-    )
+    with profiling.span("sweep.restat"):
+        if xx_bytes <= xx_budget_bytes:
+            # restat: all C chains in two wide products against shared (X, XX)
+            onehot = (z[:, :, None] == torch.arange(K, device=x.device)).to(x.dtype)  # [N, C, K]
+            counts = onehot.sum(0).to(torch.int32)
+            w = (onehot * m[:, None, None]).reshape(N, C * K)
+            xx = (x[:, :, None] * x[:, None, :]).reshape(N, D * D)
+            sum_xxT = (w.T @ xx).reshape(C, K, D, D)
+            stats = {
+                "n": w.sum(0).reshape(C, K),
+                "sum_x": (w.T @ x).reshape(C, K, D),
+                "sum_xxT": 0.5 * (sum_xxT + sum_xxT.transpose(-1, -2)),
+            }
+        else:
+            # [N, D^2] over budget (the fused route at 1M x 256): per chain
+            per_chain = [_fused_niw_stats(x, m, z[:, c].contiguous(), K) for c in range(C)]
+            stats = {leaf: torch.stack([s[leaf] for s in per_chain]) for leaf in per_chain[0]}
+            counts = torch.stack([state_mod._assignment_counts(z[:, c], K) for c in range(C)])
+        return dataclasses.replace(
+            states, assignments=z.T.contiguous(), counts=counts, stats=(stats,),
+        )

@@ -43,6 +43,10 @@ takes a `torch.Generator` and consumes it in order (the momentum, the
 max_depth directions, then per doubling one uniform a leaf and one for the
 subtree's take); the JAX package's `fold_in` tree is not reproduced, so
 compare distributions, not draws.
+
+Under `utils.profiling.recording()` `nuts_step`'s reads are the spans
+`read.hmc.directions`, `read.hmc.leaf`, `read.hmc.doubling` and (a tensor
+step size) `read.hmc.step_size`: as many as its `NUTSInfo.reads`.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch.nn.functional as F
 
 from common_tpu_torch import state as state_mod
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.utils import profiling
 
 _MAX_DELTA_ENERGY = 1000.0  # divergence threshold (Stan's default)
 
@@ -311,7 +316,7 @@ def _build_subtree(vg, q0, p0, g0, eps: float, m_inv, h0, logu, max_depth):
                      torch.where(take_new, q, tree.q_prop), torch.where(take_new, logp, tree.logp_prop),
                      new_log_weight, p_sum, turning, diverging,
                      tree.sum_accept + torch.clamp(torch.exp(log_w), max=1.0), n + 1)
-        if bool(turning | diverging):  # the one read of this leaf
+        if profiling.read(turning | diverging, "hmc.leaf"):  # the one read of this leaf
             return tree, True
     return tree, False
 
@@ -334,11 +339,16 @@ def nuts_step(logprob_fn, q, generator, step_size, m_inv=None, max_depth: int = 
     if m_inv is None:
         m_inv = torch.ones_like(q)
     vg = value_and_grad(logprob_fn)
-    step = float(step_size)
+    if isinstance(step_size, (int, float)):
+        step = float(step_size)
+    else:
+        step = profiling.read(step_size, "hmc.step_size")
     p0 = _momentum(q, m_inv, generator)
     logp0, g0 = vg(q)
     h0 = _kinetic(p0, m_inv) - logp0
-    rights = (_uniform(q, generator, (max_depth,)) < 0.5).tolist()
+    rights = _uniform(q, generator, (max_depth,)) < 0.5
+    with profiling.span("read.hmc.directions"):
+        rights = rights.tolist()
     false = torch.zeros((), dtype=torch.bool, device=q.device)
     tree = _Tree(q, p0, g0, q, p0, g0, q, logp0, torch.zeros_like(logp0), p0, false, false,
                  torch.zeros_like(logp0), 1)
@@ -373,7 +383,7 @@ def nuts_step(logprob_fn, q, generator, step_size, m_inv=None, max_depth: int = 
         if bad or depth == max_depth:
             break
         reads += 1
-        if bool(turning):  # the doubling's read
+        if profiling.read(turning, "hmc.doubling"):  # the doubling's read
             break
     info = NUTSInfo(tree.sum_accept / max(tree.num_leaves - 1, 1), tree.diverging, tree.num_leaves,
                     depth, reads)

@@ -14,6 +14,11 @@ update costs a few small synchronised steps. The caps (16 step-outs a
 side, 64 shrinks, the update a no-op when the shrinks run out) and the
 sequential coordinate scan over vector hypers are kept, so the sampler is
 the JAX package's. All values stay on the state's device.
+
+Under `utils.profiling.recording()` each update is the span
+`slice.update`, its two step-outs `slice.step_out` and its shrinkage
+`slice.shrink`; the loop tests are the reads `read.slice.step_out` and
+`read.slice.shrink`, and each target evaluation counts `slice.evals`.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from common_tpu_torch import state as state_mod
 from common_tpu_torch.rng import uniform_open
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.utils import profiling
 
 _MAX_STEPOUT = 16
 _MAX_SHRINK = 64
@@ -44,37 +50,44 @@ def slice_sample(generator: torch.Generator, x0, logf: Callable, w: float = 1.0,
     logf maps a tensor of x0's shape to one of log densities of that shape.
     Every loop test reads one device scalar: whether any entry still moves.
     """
-    dev = generator.device
-    x0 = torch.as_tensor(x0, device=dev).to(torch.float32)
-    shape = x0.shape
-    y = logf(x0) + torch.log(uniform_open(shape, generator))  # logf(x0) - Exp(1)
-    u = uniform_open(shape, generator)
-    L0 = torch.clamp(x0 - u * w, min=lower)
-    R0 = torch.clamp(L0 + w, max=upper)
+    with profiling.span("slice.update"):
+        dev = generator.device
+        x0 = torch.as_tensor(x0, device=dev).to(torch.float32)
+        shape = x0.shape
+        profiling.count("slice.evals")
+        y = logf(x0) + torch.log(uniform_open(shape, generator))  # logf(x0) - Exp(1)
+        u = uniform_open(shape, generator)
+        L0 = torch.clamp(x0 - u * w, min=lower)
+        R0 = torch.clamp(L0 + w, max=upper)
 
-    def step_out(edge, step):
-        grow = logf(edge) > y
-        for _ in range(_MAX_STEPOUT):
-            if not bool(grow.any()):
-                break
-            new_edge = torch.where(grow, torch.clamp(edge + step, lower, upper), edge)
-            grow = grow & (logf(new_edge) > y) & (new_edge != edge)
-            edge = new_edge
-        return edge
+        def step_out(edge, step):
+            with profiling.span("slice.step_out"):
+                profiling.count("slice.evals")
+                grow = logf(edge) > y
+                for _ in range(_MAX_STEPOUT):
+                    if not profiling.read(grow.any(), "slice.step_out"):
+                        break
+                    new_edge = torch.where(grow, torch.clamp(edge + step, lower, upper), edge)
+                    profiling.count("slice.evals")
+                    grow = grow & (logf(new_edge) > y) & (new_edge != edge)
+                    edge = new_edge
+                return edge
 
-    lo, hi = step_out(L0, -w), step_out(R0, w)
-    x, done = x0, torch.zeros(shape, dtype=torch.bool, device=dev)
-    for _ in range(_MAX_SHRINK):
-        xp = lo + uniform_open(shape, generator) * (hi - lo)
-        ok = ~done & (logf(xp) >= y)
-        x = torch.where(ok, xp, x)
-        done = done | ok
-        if bool(done.all()):
-            break
-        left = xp < x0
-        lo = torch.where(~done & left, xp, lo)
-        hi = torch.where(~done & ~left, xp, hi)
-    return x
+        lo, hi = step_out(L0, -w), step_out(R0, w)
+        x, done = x0, torch.zeros(shape, dtype=torch.bool, device=dev)
+        with profiling.span("slice.shrink"):
+            for _ in range(_MAX_SHRINK):
+                xp = lo + uniform_open(shape, generator) * (hi - lo)
+                profiling.count("slice.evals")
+                ok = ~done & (logf(xp) >= y)
+                x = torch.where(ok, xp, x)
+                done = done | ok
+                if profiling.read(done.all(), "slice.shrink"):
+                    break
+                left = xp < x0
+                lo = torch.where(~done & left, xp, lo)
+                hi = torch.where(~done & ~left, xp, hi)
+        return x
 
 
 def theta(state: MixtureState, generator: torch.Generator, w: float = 0.5) -> MixtureState:

@@ -29,7 +29,12 @@ rejuvenation windows) are Python ints from a CPU generator seeded once
 from `generator` (`rng.host_generator`): the entity ops take a row as an
 int. Every function takes an explicit `torch.Generator` on the particles'
 device and consumes it in order; the JAX package's `fold_in` key tree is
-not reproduced, so the streams differ by design.
+not reproduced, so the streams differ by design. Under
+`utils.profiling.recording()` the ESS read is `read.smc.ess`, and
+`run_blocked` records the spans `smc.pass`, `smc.warmup_step` (a warm-up
+row with its resampling check and rejuvenation) and `smc.block_step` (a
+block's seating, resampling check and rejuvenation), each step's phases
+`smc.seat`, `smc.resample` and `smc.rejuv`.
 
 Particle sharding (`make_particle_mesh`, `shard_particles`, `run_sharded`,
 `run_blocked_sharded`): each process of a `torch.distributed` job advances
@@ -62,6 +67,7 @@ from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.parallel.chains import map_tensors, stack_states
 from common_tpu_torch.rng import gumbel, gumbel_argmax, host_generator
 from common_tpu_torch.state import MixtureState
+from common_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +171,7 @@ def _resample_step(parts, log_w, logz, n_res, generator, ess_threshold, log_p, m
     """
     if mesh is None:
         n_p = log_w.shape[-1]
-        ess = float(torch.exp(log_ess(log_w)))
+        ess = profiling.read(torch.exp(log_ess(log_w)), "smc.ess")
         if ess < ess_threshold * n_p:
             idx = systematic_resample(generator, log_w)
             parts = _gather_particles(parts, idx)
@@ -177,13 +183,14 @@ def _resample_step(parts, log_w, logz, n_res, generator, ess_threshold, log_p, m
     n_p, p_local = log_w_all.shape[-1], log_w.shape[-1]
     msg = torch.zeros(n_p + 2, dtype=torch.float64, device=log_w.device)
     if mesh.data_index == 0:
-        ess = float(torch.exp(log_ess(log_w_all)))
+        ess = profiling.read(torch.exp(log_ess(log_w_all)), "smc.ess")
         msg[0] = ess
         if ess < ess_threshold * n_p:
             msg[1] = 1.0
             msg[2:] = systematic_resample(generator, log_w_all).to(torch.float64)
     dist.broadcast(msg, src=mesh.rank - mesh.data_index, group=mesh.data_group)
-    ess, resample = msg[:2].tolist()
+    with profiling.span("read.smc.ess"):
+        ess, resample = msg[:2].tolist()
     if resample:
         r0 = mesh.data_index * p_local
         local_idx = msg[2 + r0:2 + r0 + p_local].to(torch.int64)
@@ -458,57 +465,65 @@ def _run_blocked(particles, data, generator, block, ess_threshold, rejuvenation_
                  mesh=None):
     """`run_blocked`'s body; with a particle mesh, this rank's particles of
     `run_blocked_sharded`."""
-    _check_block_smc_support(particles)
-    n_p = particles.counts.shape[0]
-    n = particles.assignments.shape[-1]
-    w_rows = min(warmup, n)
-    nb = max(0, -(-(n - w_rows) // block))
-    n_pad = w_rows + nb * block
-    data_p = _pad_cols(data, n_pad)
-    parts, log_w, logz = _start(particles)
-    pad = torch.full((n_p, n_pad - n), -1, dtype=parts.assignments.dtype, device=parts.device)
-    parts = dataclasses.replace(parts, assignments=torch.cat([parts.assignments, pad], 1))
-    host = host_generator(generator)
-    log_p = math.log(n_p * (1 if mesh is None else mesh.data))
-    n_res, ess_trace = 0, []
+    with profiling.span("smc.pass"):
+        _check_block_smc_support(particles)
+        n_p = particles.counts.shape[0]
+        n = particles.assignments.shape[-1]
+        w_rows = min(warmup, n)
+        nb = max(0, -(-(n - w_rows) // block))
+        n_pad = w_rows + nb * block
+        data_p = _pad_cols(data, n_pad)
+        parts, log_w, logz = _start(particles)
+        pad = torch.full((n_p, n_pad - n), -1, dtype=parts.assignments.dtype, device=parts.device)
+        parts = dataclasses.replace(parts, assignments=torch.cat([parts.assignments, pad], 1))
+        host = host_generator(generator)
+        log_p = math.log(n_p * (1 if mesh is None else mesh.data))
+        n_res, ess_trace = 0, []
 
-    def window(off):
-        cols = tuple((x[off:off + block], m[off:off + block]) for x, m in data_p)
-        return cols, torch.arange(off, off + block, device=parts.device) < n
+        def window(off):
+            cols = tuple((x[off:off + block], m[off:off + block]) for x, m in data_p)
+            return cols, torch.arange(off, off + block, device=parts.device) < n
 
-    def rejuvenate(parts, seated):
-        """Blocked-Gibbs re-assignment of random seated windows [roff, roff + block)."""
-        for _ in range(rejuvenation_blocks):
-            roff = int(torch.randint(0, max(seated - block + 1, 1), (1,), generator=host))
-            rcols, rvalid = window(roff)
-            parts, z_new = _rejuv_block(parts, rcols, parts.assignments[:, roff:roff + block],
-                                        rvalid, generator)
-            parts.assignments[:, roff:roff + block] = z_new
-        return parts
+        def rejuvenate(parts, seated):
+            """Blocked-Gibbs re-assignment of random seated windows [roff, roff + block)."""
+            with profiling.span("smc.rejuv"):
+                for _ in range(rejuvenation_blocks):
+                    roff = int(torch.randint(0, max(seated - block + 1, 1), (1,), generator=host))
+                    rcols, rvalid = window(roff)
+                    parts, z_new = _rejuv_block(parts, rcols, parts.assignments[:, roff:roff + block],
+                                                rvalid, generator)
+                    parts.assignments[:, roff:roff + block] = z_new
+            return parts
 
-    for eid in range(w_rows):
-        log_w = log_w + _warmup_row(parts, data_p, eid, generator).to(log_w.dtype)
-        parts, log_w, logz, n_res, ess = _resample_step(
-            parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
-        ess_trace.append(ess)
-        if rejuvenation_blocks > 0 and w_rows > block and (eid + 1) % block == 0:
-            parts = rejuvenate(parts, eid + 1)
+        for eid in range(w_rows):
+            with profiling.span("smc.warmup_step"):
+                with profiling.span("smc.seat"):
+                    log_w = log_w + _warmup_row(parts, data_p, eid, generator).to(log_w.dtype)
+                with profiling.span("smc.resample"):
+                    parts, log_w, logz, n_res, ess = _resample_step(
+                        parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
+                ess_trace.append(ess)
+                if rejuvenation_blocks > 0 and w_rows > block and (eid + 1) % block == 0:
+                    parts = rejuvenate(parts, eid + 1)
 
-    for b in range(nb):
-        off = w_rows + b * block
-        cols, valid = window(off)
-        parts, z_blk, incr = _seat_block(parts, cols, valid, generator)
-        parts.assignments[:, off:off + block] = z_blk
-        log_w = log_w + incr.to(log_w.dtype)
-        parts, log_w, logz, n_res, ess = _resample_step(
-            parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
-        ess_trace.append(ess)
-        if rejuvenation_blocks > 0:
-            parts = rejuvenate(parts, off + block)
+        for b in range(nb):
+            with profiling.span("smc.block_step"):
+                off = w_rows + b * block
+                cols, valid = window(off)
+                with profiling.span("smc.seat"):
+                    parts, z_blk, incr = _seat_block(parts, cols, valid, generator)
+                    parts.assignments[:, off:off + block] = z_blk
+                    log_w = log_w + incr.to(log_w.dtype)
+                with profiling.span("smc.resample"):
+                    parts, log_w, logz, n_res, ess = _resample_step(
+                        parts, log_w, logz, n_res, generator, ess_threshold, log_p, mesh)
+                ess_trace.append(ess)
+                if rejuvenation_blocks > 0:
+                    parts = rejuvenate(parts, off + block)
 
-    logz = _final_logz(logz, log_w, log_p, mesh)
-    parts = dataclasses.replace(parts, assignments=parts.assignments[:, :n].contiguous())
-    return SMCResult(parts, log_w, logz, n_res, torch.tensor(ess_trace, dtype=torch.float64))
+        logz = _final_logz(logz, log_w, log_p, mesh)
+        parts = dataclasses.replace(parts, assignments=parts.assignments[:, :n].contiguous())
+        return SMCResult(parts, log_w, logz, n_res, torch.tensor(ess_trace, dtype=torch.float64))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ import hashlib
 import torch
 
 from common_tpu_torch import validator
+from common_tpu_torch.utils import profiling
 
 
 class rng:
@@ -137,7 +138,7 @@ def host_generator(generator: torch.Generator) -> torch.Generator:
     Samplers that pick rows (SMC's rejuvenation, subsample annealing) draw
     the row indices from it as Python ints: the entity ops take a row as
     an int, and a draw on the card would cost a device read a row. The
-    seed is the one read.
+    seed is the one read (`read.rng.host_generator`).
     """
     seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
-    return torch.Generator().manual_seed(int(seed))
+    return torch.Generator().manual_seed(profiling.read(seed, "rng.host_generator"))

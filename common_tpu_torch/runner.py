@@ -15,6 +15,9 @@ loop itself never waits on the device between sweeps (the slice sampler
 does, inside `slice_hp` and `slice_theta`: see `kernels/slice_.py`; so do
 the NUTS kernels, one boolean a leaf and a doubling: see `kernels/hmc.py`).
 `jsonl_path` adds one JSON line per sweep, written at the end of each `run`.
+Under `utils.profiling.recording()` a step is the span `runner.step`, each
+kernel in it `runner.<kernel>`, and `run`'s copies of the chunk's traces
+to the host the read `read.runner.trace`.
 
 A state family supplies its kernel registry, joint score, counts,
 assignments, saturation test and default kernel keywords: `MixtureState`
@@ -42,7 +45,7 @@ from common_tpu_torch.relational import kernels as irm_kernels
 from common_tpu_torch.relational import state as irm_state
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.topic import hdp
-from common_tpu_torch.utils import diagnostics
+from common_tpu_torch.utils import diagnostics, profiling
 
 
 def _k_assign(state, data, generator, **kw):
@@ -236,15 +239,19 @@ def normalize_config(kernel_config: Sequence,
 
 def make_step(kernel_config: Sequence, data, family: Optional[dict] = None) -> Callable:
     """Compose a kernel config into one `step(state, generator) -> state`
-    (the mixture family's unless `family` names another)."""
+    (the mixture family's unless `family` names another). A step is the
+    span `runner.step`, each kernel in it the span `runner.<kernel>`."""
     family = MIXTURE_FAMILY if family is None else family
     kernels = family["kernels"]
     defaults = family["default_kw"](data)
-    config = tuple((name, {**defaults, **kw}) for name, kw in normalize_config(kernel_config, kernels))
+    config = tuple((name, {**defaults, **kw}, f"runner.{name}")
+                   for name, kw in normalize_config(kernel_config, kernels))
 
     def step(state, generator):
-        for name, kw in config:
-            state = kernels[name](state, data, generator, **kw)
+        with profiling.span("runner.step"):
+            for name, kw, span_name in config:
+                with profiling.span(span_name):
+                    state = kernels[name](state, data, generator, **kw)
         return state
 
     return step
@@ -300,18 +307,20 @@ class runner:
             self._state, generator, self._step, self._family, int(niters), collect
         )
         if collect:
-            self._assignment_trace.append(trace["assignments"].cpu().numpy())
-            self._score_trace.append(trace["score"].cpu().numpy())
-            self._k_active_trace.append(trace["k_active"].cpu().numpy())
+            with profiling.span("read.runner.trace"):
+                self._assignment_trace.append(trace["assignments"].cpu().numpy())
+                self._score_trace.append(trace["score"].cpu().numpy())
+                self._k_active_trace.append(trace["k_active"].cpu().numpy())
         if self._jsonl_path is not None:
             self._write_jsonl(trace)
         self._warn_if_saturated()
         return self._state
 
     def _write_jsonl(self, trace):
-        scores = trace["score"].cpu().numpy()
-        k_active = trace["k_active"].cpu().numpy()
-        counts = trace["counts"].cpu().numpy()
+        with profiling.span("read.runner.jsonl"):
+            scores = trace["score"].cpu().numpy()
+            k_active = trace["k_active"].cpu().numpy()
+            counts = trace["counts"].cpu().numpy()
         full = self.score_trace
         ess = float(diagnostics.ess(full)) if full.shape[-1] >= 4 else None
         with open(self._jsonl_path, "a") as f:
@@ -327,7 +336,7 @@ class runner:
                 self._sweep_idx += 1
 
     def _warn_if_saturated(self):
-        if bool(self._family["is_saturated"](self._state)):
+        if profiling.read(self._family["is_saturated"](self._state), "runner.saturated"):
             warnings.warn(
                 "all cluster/topic slots are occupied: the sampler can no longer "
                 "open new groups and the truncation may bias the posterior. "

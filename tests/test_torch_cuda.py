@@ -494,3 +494,77 @@ def test_cuda_gamma_draw_is_at_least_tiny(cuda_device):
     for dtype in (torch.float32, torch.float64):
         x = standard_gamma(torch.full((100_000,), 1e-3, dtype=dtype, device=cuda_device), g)
         assert float(x.min()) == torch.finfo(dtype).tiny
+
+
+@pytest.mark.cuda
+def test_cuda_every_sync_of_slice_hp_and_block_smc_is_a_counted_read(cuda_device):
+    """One slice_hp iteration (config 2's shape) and a block-SMC pass of 128
+    warm-up rows and 2 blocks (the smc cell's widths) under
+    set_sync_debug_mode("warn") with the recorder on: every synchronisation
+    the card reports is raised inside an open `read.<site>` span, so the
+    recorder's read counts are all the host's waits on these paths."""
+    import traceback
+    import warnings
+
+    from common_tpu_torch import models, rng, scalar_functions as sf, state as st
+    from common_tpu_torch.kernels import smc
+    from common_tpu_torch.runner import runner
+    from common_tpu_torch.utils import profiling
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n, d = 100_000, 64
+    profiles = torch.rand((8, d), generator=g, device=cuda_device)
+    rows = torch.randint(0, 8, (n,), generator=g, device=cuda_device)
+    xb = (torch.rand((n, d), generator=g, device=cuda_device) < profiles[rows]).to(torch.float32)
+    bdata = ((xb, torch.ones(n, device=cuda_device)),)
+    defn = st.model_definition(n, [models.bbv(d)], k_max=32)
+    s0 = st.initialize(defn, bdata, rng(0, cuda_device).generator, cluster_hp={"alpha": 1.0})
+    spec = {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (0.5, 50.0)}
+    config = [("assign_blocked_fused", {}),
+              ("slice_hp", {"specs": {0: {"alpha": spec, "beta": spec}},
+                            "cluster": {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (1e-4, 1e4)}})]
+    chain = runner(defn, bdata, s0, config)
+
+    P, B, W, D = 16, 8192, 128, 256
+    m = W + 2 * B
+    xn = torch.randn((8, D), generator=g, device=cuda_device)[torch.randint(0, 8, (m,), generator=g,
+                                                                             device=cuda_device)] * 4.0
+    xn = xn + torch.randn((m, D), generator=g, device=cuda_device)
+    ndata = ((xn, torch.ones(m, device=cuda_device)),)
+    ndefn = st.model_definition(m, [models.niw(D)], k_max=64)
+    hyper = {"mu0": np.zeros(D, np.float32), "kappa": 1.0, "psi": np.eye(D, dtype=np.float32), "nu": D + 2.0}
+
+    def particles():
+        return smc.init_particles(ndefn, ndata, rng(4, cuda_device).generator, P, cluster_hp={"alpha": 1.0},
+                                  feature_hps=[hyper])
+
+    gen = rng(1, cuda_device).generator
+    chain.run(gen, 1)  # first use: library set-up and the kernels' build outside the check
+    smc.run_blocked(particles(), ndata, gen, block=B, warmup=W)
+    parts = particles()
+    torch.cuda.synchronize()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):  # not the warning that turns the mode on
+            rec = profiling._RECORD
+            names = [rec.spans[i][0] for i in rec.open] if rec else []
+            seen.append((names, "".join(traceback.format_stack(limit=8)[:-1])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profiling.recording() as rec:
+                chain.run(gen, 1)
+                smc.run_blocked(parts, ndata, gen, block=B, warmup=W)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    outside = [stack for names, stack in seen if not any(name.startswith("read.") for name in names)]
+    assert not outside, f"{len(outside)} of {len(seen)} syncs outside a read span; first:\n{outside[0]}"
+    reads = rec.reads()
+    assert reads["smc.ess"] == W + 2 and rec.reads(within="smc.block_step").get("smc.ess") == 2
+    assert reads["slice.step_out"] >= 2 * 129 and reads["slice.shrink"] >= 129
+    # each read span saw at least its own synchronisation, and nothing else did
+    assert len(seen) >= sum(reads.values())

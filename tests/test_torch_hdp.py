@@ -474,7 +474,8 @@ def test_profiling_on_the_cpu(tmp_path):
     assert profiling.sweeps_per_second(lambda s: s, 1, iters=2, device="cpu") > 0
     assert profiling.device_memory_stats("cpu") == {}
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.named_scope("matmul"):
+        with profiling.recording(), profiling.span("matmul"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     assert any("matmul" in e.key for e in prof.key_averages())
+    assert any(e.key == "matmul" for e in prof.key_averages())  # the span itself, not aten::matmul
     assert any(p.name.endswith(".json") for p in tmp_path.iterdir())

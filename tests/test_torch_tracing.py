@@ -1,0 +1,286 @@
+"""The port's own spans, host reads and counters (`utils/profiling.py`), on the CPU.
+
+Off by default: the samplers build no span and give the same draws bit for
+bit with the recorder on. On: spans nest inside their parents, the reads
+count the samplers' loop tests and ESS checks exactly, and under a
+`torch.profiler` every span is a `record_function` range nested as the
+recorder has it.
+"""
+
+import dataclasses
+import math
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from common_tpu_torch import models, rng
+from common_tpu_torch import scalar_functions as sf
+from common_tpu_torch import state as st
+from common_tpu_torch.kernels import blocked, hmc, slice_, smc
+from common_tpu_torch.runner import runner
+from common_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+
+def _gen(seed):
+    return rng(seed, "cpu").generator
+
+
+def _leaves(obj):
+    """Every tensor of a state, a result tuple or a dict, in a fixed order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, dict):
+        obj = [obj[k] for k in sorted(obj)]
+    if isinstance(obj, (list, tuple)):
+        return [t for o in obj for t in _leaves(o)]
+    return []
+
+
+def _slice_hp_run():
+    r = np.random.default_rng(0)
+    n, d = 200, 4
+    z = r.integers(0, 3, n)
+    X = (r.random((n, d)) < np.array([[0.1, 0.9, 0.5, 0.2], [0.9, 0.1, 0.5, 0.8], [0.5, 0.5, 0.1, 0.9]])[z])
+    data = ((torch.from_numpy(X.astype(np.float32)), torch.ones(n)),)
+    defn = st.model_definition(n, [models.bbv(d)], k_max=8)
+    s = st.initialize(defn, data, _gen(0), cluster_hp={"alpha": 1.0})
+    spec = {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (0.5, 50.0)}
+    config = [("assign_blocked_fused", {}),
+              ("slice_hp", {"specs": {0: {"alpha": spec, "beta": spec}},
+                            "cluster": {"prior": sf.log_exponential(1.0), "w": 0.5, "bounds": (1e-4, 1e4)}})]
+    run = runner(defn, data, s, config)
+    run.run(_gen(1), 2)
+    return [run.get_latent(), run.score_trace, run.assignment_trace]
+
+
+def _niw_rows(n, d, seed):
+    r = np.random.default_rng(seed)
+    centers = r.normal(scale=4.0, size=(3, d))
+    x = centers[r.integers(0, 3, n)] + r.normal(size=(n, d))
+    return ((torch.from_numpy(x.astype(np.float32)), torch.ones(n)),)
+
+
+def _sweep_fused_run():
+    data = _niw_rows(300, 3, 1)
+    defn = st.model_definition(300, [models.niw(3)], k_max=5)
+    s = st.initialize(defn, data, _gen(2), cluster_hp={"alpha": 1.0})
+    gen = _gen(3)
+    for _ in range(2):
+        s = blocked.sweep_fused(s, data, gen)
+    return s
+
+
+N_SMC, BLOCK, WARMUP = 100, 16, 8
+N_BLOCKS = math.ceil((N_SMC - WARMUP) / BLOCK)
+
+
+def _run_blocked_run():
+    data = _niw_rows(N_SMC, 2, 4)
+    defn = st.model_definition(N_SMC, [models.niw(2)], k_max=4)
+    parts = smc.init_particles(defn, data, _gen(5), 4, cluster_hp={"alpha": 1.0})
+    return smc.run_blocked(parts, data, _gen(6), block=BLOCK, warmup=WARMUP)
+
+
+RUNS = {"slice_hp": _slice_hp_run, "sweep_fused": _sweep_fused_run, "run_blocked": _run_blocked_run}
+
+
+@pytest.fixture(scope="module")
+def recorded():
+    """Each path run once with the recorder off (no span object built) and
+    once on, from the same seeds: (off result, on result, record)."""
+    out = {}
+    built = []
+    real = profiling._Span.__init__
+
+    def counting(self, *args):
+        built.append(args[1])
+        real(self, *args)
+
+    for name, fn in RUNS.items():
+        profiling._Span.__init__ = counting
+        try:
+            off = fn()
+        finally:
+            profiling._Span.__init__ = real
+        assert built == [] and profiling._RECORD is None, (name, built[:5])
+        with profiling.recording() as rec:
+            on = fn()
+        assert profiling._RECORD is None
+        out[name] = (off, on, rec)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(RUNS))
+def test_recorder_off_by_default_and_on_gives_the_same_draws(recorded, path):
+    off, on, rec = recorded[path]
+    a, b = _leaves(off), _leaves(on)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    assert rec.spans and not rec.profiled and rec.end_ns > rec.start_ns
+
+
+@pytest.mark.parametrize("path", sorted(RUNS))
+def test_spans_nest_inside_their_parents(recorded, path):
+    rec = recorded[path][2]
+    for name, start, end, parent in rec.spans:
+        assert end >= start > 0, name
+        assert rec.start_ns <= start and end <= rec.end_ns
+        if parent >= 0:
+            _, p_start, p_end, _ = rec.spans[parent]
+            assert p_start <= start and end <= p_end, (name, rec.spans[parent][0])
+    summary = rec.summary()
+    assert all(s["self_s"] >= 0 and s["self_s"] <= s["host_s"] for s in summary.values())
+    assert not rec.open
+
+
+def test_the_runner_and_slice_spans(recorded):
+    rec = recorded["slice_hp"][2]
+    s = rec.summary()
+    assert s["runner.step"]["calls"] == 2
+    assert s["runner.assign_blocked_fused"]["calls"] == s["runner.slice_hp"]["calls"] == 2
+    assert s["sweep.inputs"]["calls"] == s["sweep.assign"]["calls"] == s["sweep.restat"]["calls"] == 2
+    updates = 2 * (4 + 4 + 1)  # alpha and beta, coordinate by coordinate, then the concentration
+    assert s["slice.update"]["calls"] == updates
+    assert s["slice.step_out"]["calls"] == 2 * updates and s["slice.shrink"]["calls"] == updates
+    reads = rec.reads()
+    assert reads["runner.trace"] == 1 and reads["runner.saturated"] == 1
+    # every step-out takes at least its first test, every shrink at least one
+    assert reads["slice.step_out"] >= 2 * updates and reads["slice.shrink"] >= updates
+    assert set(reads) == {"runner.trace", "runner.saturated", "slice.step_out", "slice.shrink"}
+    # a target evaluation before each step-out test and each shrink test, plus the level's
+    assert rec.counters["slice.evals"] == updates + reads["slice.step_out"] + reads["slice.shrink"]
+    assert s["runner.step"]["host_s"] >= s["runner.slice_hp"]["host_s"] >= s["slice.update"]["host_s"]
+
+
+def test_sweep_fused_spans(recorded):
+    rec = recorded["sweep_fused"][2]
+    s = rec.summary()
+    assert {k: v["calls"] for k, v in s.items()} == {"sweep.inputs": 2, "sweep.assign": 2, "sweep.restat": 2}
+    assert rec.reads() == {}
+
+
+@pytest.mark.parametrize("x0", [torch.tensor(0.3), torch.tensor([0.3, -1.0, 2.0])])
+def test_slice_reads_equal_the_loop_tests(x0):
+    """A flat target always grows: each step-out runs to its cap of 16 steps,
+    one test a step, and the first shrink lands (one test)."""
+    with profiling.recording() as rec:
+        for _ in range(3):
+            x = slice_.slice_sample(_gen(7), x0, torch.zeros_like, w=0.5)
+    assert x.shape == x0.shape
+    cap = slice_._MAX_STEPOUT
+    assert rec.reads() == {"slice.step_out": 3 * 2 * cap, "slice.shrink": 3}
+    assert rec.counters == {"slice.evals": 3 * (1 + 2 * (1 + cap) + 1)}
+    s = rec.summary()
+    assert s["slice.update"]["calls"] == 3 and s["slice.step_out"]["calls"] == 6
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_slice_reads_count_the_shrinks(seed):
+    """A target flat on [-1, 1] and -inf outside, from 0 with width 0.5: each
+    step-out tests three times (two steps inside, the third lands outside),
+    and the shrinkage tests once a proposal, each proposal one evaluation."""
+    def logf(v):
+        return torch.where(v.abs() <= 1.0, 0.0, -math.inf)
+
+    with profiling.recording() as rec:
+        x = slice_.slice_sample(_gen(20 + seed), torch.tensor(0.0), logf, w=0.5)
+    assert abs(float(x)) <= 1.0
+    reads = rec.reads()
+    assert reads["slice.step_out"] == 6
+    assert reads["slice.shrink"] == rec.counters["slice.evals"] - (1 + 2 * 3) >= 1
+
+
+def test_smc_reads_one_ess_a_step_and_spans_each_step(recorded):
+    rec = recorded["run_blocked"][2]
+    s = rec.summary()
+    assert s["smc.pass"]["calls"] == 1
+    assert s["smc.warmup_step"]["calls"] == WARMUP and s["smc.block_step"]["calls"] == N_BLOCKS
+    assert s["smc.seat"]["calls"] == s["smc.resample"]["calls"] == WARMUP + N_BLOCKS
+    assert s["smc.rejuv"]["calls"] == N_BLOCKS  # every block step; no warm-up window (warmup < block)
+    assert rec.reads() == {"smc.ess": WARMUP + N_BLOCKS, "rng.host_generator": 1}
+    assert rec.reads(within="smc.block_step") == {"smc.ess": N_BLOCKS}
+    assert rec.reads(within="smc.warmup_step") == {"smc.ess": WARMUP}
+
+
+def test_nuts_reads_are_its_info_reads():
+    q = torch.tensor([0.5, -0.2, 1.0], dtype=torch.float64)
+    for step_size in (0.3, torch.tensor(0.3, dtype=torch.float64)):
+        with profiling.recording() as rec:
+            _, _, info = hmc.nuts_step(lambda v: -0.5 * (v * v).sum(), q, _gen(9), step_size, max_depth=6)
+        reads = rec.reads()
+        assert sum(reads.values()) == info.reads
+        assert reads["hmc.directions"] == 1 and reads.get("hmc.step_size", 0) == (not isinstance(step_size, float))
+        assert reads["hmc.leaf"] >= 1
+
+
+def test_record_summary_and_reads_on_hand_worked_rows():
+    rec = profiling.Record(profiled=False)
+    rec.spans = [
+        ["smc.block_step", 0, 100, -1],
+        ["smc.seat", 10, 40, 0],
+        ["read.smc.ess", 50, 60, 0],
+        ["smc.rejuv", 60, 90, 0],
+        ["read.x", 70, 75, 3],
+        ["read.smc.ess", 200, 230, -1],
+        ["smc.block_step", 300, 310, -1],
+    ]
+    s = rec.summary()
+    assert s["smc.block_step"] == {"calls": 2, "host_s": pytest.approx(110e-9),
+                                   "self_s": pytest.approx((100 - 30 - 10 - 30 + 10) * 1e-9)}
+    assert s["smc.rejuv"]["self_s"] == pytest.approx(25e-9)
+    assert s["read.smc.ess"] == {"calls": 2, "host_s": pytest.approx(40e-9), "self_s": pytest.approx(40e-9)}
+    assert rec.reads() == {"smc.ess": 2, "x": 1}
+    assert rec.reads(within="smc.block_step") == {"smc.ess": 1, "x": 1}
+    assert rec.reads(within="smc.rejuv") == {"x": 1}
+
+
+def test_off_calls_do_nothing_and_nested_recordings_restore():
+    t = torch.tensor(2.5)
+    assert profiling._RECORD is None
+    assert profiling.read(t, "x") == 2.5 and profiling.count("c") is None
+    with profiling.span("a") as inner:
+        assert inner is None
+    with profiling.recording() as outer:
+        profiling.count("c", 2)
+        with profiling.recording() as nested:
+            profiling.count("c")
+            with profiling.span("b"):
+                profiling.read(t, "y")
+        profiling.count("c")
+    assert profiling._RECORD is None
+    assert outer.counters == {"c": 3} and outer.spans == []
+    assert nested.counters == {"c": 1} and [r[0] for r in nested.spans] == ["b", "read.y"]
+    assert nested.spans[1][3] == 0  # the read's parent is the span b
+
+
+def test_program_spans_are_profiler_ranges_nested_alike():
+    """Under a CPU torch.profiler each span is a record_function event of its
+    name, and the innermost enclosing program span of each event is the
+    span's parent in the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data = _niw_rows(60, 2, 8)
+    defn = st.model_definition(60, [models.niw(2)], k_max=3)
+    parts = smc.init_particles(defn, data, _gen(10), 2, cluster_hp={"alpha": 1.0})
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.recording() as rec:
+            smc.run_blocked(parts, data, _gen(11), block=16, warmup=4)
+    assert rec.profiled
+    names = {r[0] for r in rec.spans}
+    want = Counter((r[0], rec.spans[r[3]][0] if r[3] >= 0 else None) for r in rec.spans)
+    got = Counter()
+    for e in prof.events():
+        if e.name not in names:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name not in names:
+            p = p.cpu_parent
+        got[(e.name, None if p is None else p.name)] += 1
+    assert got == want
