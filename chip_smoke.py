@@ -51,13 +51,16 @@ Phases, each fatal on failure (exit code 1, no result line):
 5. Path B, config 2: a Beta-Bernoulli DPMM at 100k x 64, K_max=32 (8
    planted Beta(0.5, 0.5) profiles, numpy seed 0, 4096 held-out rows),
    runner(..., [("assign_blocked_fused", {}), ("slice_hp", {...})]) for 8
-   iterations with the counts set to 0 just before. Checks launches,
+   iterations with the counts set to 0 just before. Checks launches
+   (the linear kernel once an iteration, the slice update 129 times),
    finite scores, counts, the held-out log density against the
    one-cluster state's, the linear kernel draw for draw on the path's
-   own inputs and on the CRP start's, and the replay of 2 runner
-   iterations with their resume pair; prints iterations/s, the kernel
-   against its plain version, its library yardstick warm and L2-cold, the
-   noise its inputs need, and the slice sampler's share.
+   own inputs and on the CRP start's, each of the 129 slice updates of
+   one more `slice_.hp` on the final state against its plain version bit
+   for bit, and the replay of 2 runner iterations with their resume pair;
+   prints iterations/s, the linear kernel against its plain version, its
+   library yardstick warm and L2-cold, the noise its inputs need, the
+   slice update kernel's time an update, and the slice sampler's share.
 6. BASELINE config 1 by collapsed Gibbs: 10,000 x 2 rows around the three
    planted centers of `examples/dpmm.py` (scale 0.6, numpy seed 0),
    `models.niw(2)`, K_max=32, alpha=1, CRP initial state;
@@ -1230,10 +1233,11 @@ def phase_chains(headline: dict) -> dict:
 def _all_kernels():
     from common_tpu_torch.ops import gaussian_assign as ga
     from common_tpu_torch.ops import linear_assign as la
+    from common_tpu_torch.ops import slice_update as su
     from common_tpu_torch.ops import suffstat as ss
 
     return (ga.fused_gaussian_assign, ga.fused_gaussian_assign_chains, la.fused_linear_assign,
-            ss.fused_scatter_stats)
+            ss.fused_scatter_stats, su.slice_update)
 
 
 def _zero_launches() -> None:
@@ -1511,6 +1515,7 @@ def phase_config2() -> dict:
     from common_tpu_torch import models, rng, scalar_functions as sf, state as st
     from common_tpu_torch.kernels import blocked, slice_
     from common_tpu_torch.ops import linear_assign as la
+    from common_tpu_torch.ops import slice_update as su
     from common_tpu_torch.runner import runner
 
     dev = torch.device("cuda")
@@ -1535,16 +1540,20 @@ def phase_config2() -> dict:
     run = runner(defn, data, s0, [("assign_blocked_fused", {}), ("slice_hp", hp_kw)])
     start = linear_at_start(s0, data, x, dev)
 
-    la.fused_linear_assign.launches = 0
+    _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run.run(gen, ITERS2)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = la.fused_linear_assign.launches
+    launched = _launches()
+    launches, updates = launched["fused_linear_assign"], launched["slice_update"]
     log(f"runner.run({ITERS2} x [fused bbv sweep, slice_hp]): {run_s:.3f} s, "
-        f"{ITERS2 / run_s:.3f} iterations/s; linear_assign launches {launches}")
+        f"{ITERS2 / run_s:.3f} iterations/s; launches {launched}")
     require(launches == ITERS2, f"linear kernel launches {launches} != {ITERS2} iterations")
+    # alpha and beta of each column, then the concentration: one launch each
+    require(updates == (2 * D2 + 1) * ITERS2 and sum(launched.values()) == launches + updates,
+            f"slice_update launches {updates} != {(2 * D2 + 1) * ITERS2}, or another kernel ran: {launched}")
     scores = run.score_trace
     log(f"score_joint trace: {scores.tolist()}")
     log(f"k_active trace: {run.k_active_trace.tolist()}")
@@ -1586,23 +1595,47 @@ def phase_config2() -> dict:
     sweep_med, hp_med = float(np.median(sweep_ms)), float(np.median(hp_ms))
     log(f"fused bbv sweep {sweep_med:.2f} ms, slice_hp {hp_med:.2f} ms "
         f"(share of the iteration {hp_med / (hp_med + sweep_med):.3f})")
-    # what one slice target evaluation costs: with the host waiting on its
-    # result (as each loop test does), and queued back to back
-    lik, active = s.likelihoods()[0], s.counts > 0
+    # kernel 5 against its plain version on one slice_hp of the run's final
+    # state: each update's inputs (x0, level, seed, target) as the sampler
+    # made them, one coordinate after another
+    calls = []
+    real = slice_.slice_update
 
-    def evaluate():
-        ml = lik.marginal_loglik(s.hypers[0], s.stats[0])
-        return torch.where(active, ml, torch.zeros_like(ml)).sum()
+    def recorded(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
 
-    evaluate()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        bool(evaluate() > 0)
-    waited_ms = 1e3 * (time.perf_counter() - t0) / 200
-    eval_queued_ms = cuda_ms(evaluate, 200)
-    log(f"one slice target evaluation: {waited_ms:.3f} ms with the host waiting on it, "
-        f"{eval_queued_ms:.3f} ms queued back to back; slice_hp is about "
-        f"{hp_med / waited_ms:.0f} evaluations")
+    slice_.slice_update = recorded
+    try:
+        slice_.hp(s, data, gen, **hp_kw)
+    finally:
+        slice_.slice_update = real
+    kinds = [args[3].kind for args, _ in calls]
+    require(kinds == [su.KIND_ALPHA] * D2 + [su.KIND_BETA] * D2 + [su.KIND_CRP],
+            f"slice_hp made {len(calls)} kernel updates, not alpha and beta of {D2} columns and the concentration")
+    plain5 = [su.slice_update_plain(*args) for args, _ in calls]
+    mismatch5 = sum(int(not torch.equal(out, want)) for (_, out), want in zip(calls, plain5))
+    require(mismatch5 == 0, f"slice_update: {mismatch5} of {len(calls)} updates differ from the plain version")
+
+    def kernel5():
+        for args, _ in calls:
+            su.slice_update(*args)
+
+    def plain_all5():
+        for args, _ in calls:
+            su.slice_update_plain(*args)
+
+    k5 = cuda_ms(kernel5, 5) / len(calls)
+    k5_dev = queued_ms(kernel5, 2) / len(calls)
+    p5 = cuda_ms(plain_all5, 1) / len(calls)
+    # bytes: counts, n and the column's heads once, x0, level, seed, the
+    # other hyper and x1; the update is a chain of dependent evaluations, so
+    # latency, not this bound, sets its time
+    y5 = {**bound(0.0, 4.0 * (3 * K2 + 5)), "library": "none: no library call makes a slice update"}
+    log(f"slice_update on path B's final state, {len(calls)} updates (K={K2}): equal to the plain version "
+        f"bit for bit; kernel {k5:.4f} ms an update back to back, {k5_dev:.4f} ms on the card alone; plain "
+        f"{p5:.4f} ms; bound {y5['bound_ms']:.2e} ms ({y5['bound_by']})")
     hp_idle, _ = profile_sweep(lambda: slice_.hp(s, data, gen, **hp_kw))
 
     # the kernel against its plain version, on this path's own inputs
@@ -1626,16 +1659,22 @@ def phase_config2() -> dict:
         f"{y3['library_ms_cold']:.4f} ms")
     log(f"  noise these inputs need, worked out in Python: {noise_line(need, K2)}")
     return {
-        "kernel": {"name": "linear_assign", "route": "cuda",
-                   "source": "common_tpu_torch/csrc/linear_assign.cu",
-                   "replaces": "common_tpu/ops/linear_assign.py:67",
-                   "launches": launches, "max_abs_err": exact["shortfall"],
-                   "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
-                   "ms": k3, "device_ms": k3_dev, "ms_cold": k3_cold, "plain_ms": p3, **y3},
+        "kernels": [
+            {"name": "linear_assign", "route": "cuda",
+             "source": "common_tpu_torch/csrc/linear_assign.cu",
+             "replaces": "common_tpu/ops/linear_assign.py:67",
+             "launches": launches, "max_abs_err": exact["shortfall"],
+             "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
+             "ms": k3, "device_ms": k3_dev, "ms_cold": k3_cold, "plain_ms": p3, **y3},
+            {"name": "slice_update", "route": "cuda",
+             "source": "common_tpu_torch/csrc/slice_update.cu",
+             "replaces": "none: common_tpu/kernels/slice_.py:32 runs the update as a lax.while_loop",
+             "launches": updates, "mismatch": mismatch5, "updates_checked": len(calls),
+             "ms": k5, "device_ms": k5_dev, "plain_ms": p5, **y5},
+        ],
         "linear_noise_need": need, "linear_at_start": start,
         "iterations_per_s": ITERS2 / run_s,
         "fused_sweep_ms": sweep_med, "slice_hp_ms": hp_med, "slice_hp_idle_share": hp_idle,
-        "slice_eval_ms": waited_ms, "slice_eval_queued_ms": eval_queued_ms,
         "heldout_logp_per_dim": lp_dim, "one_cluster_logp_per_dim": lp_one, "replay": replayed,
     }
 
@@ -3520,7 +3559,8 @@ def phase_bench_smoke(card: str) -> dict:
     require(fused["launches"]["gaussian_assign"] == want and fused["launches"]["scatter_stats"] == want,
             f"fused tier launches {fused['launches']} != {want} of kernels 1 and 2")
     require(launched["fused_gaussian_assign"] == want and launched["fused_scatter_stats"] == want
-            and not launched["fused_gaussian_assign_chains"] and not launched["fused_linear_assign"],
+            and not launched["fused_gaussian_assign_chains"] and not launched["fused_linear_assign"]
+            and not launched["slice_update"],
             f"bench --smoke launches {launched}")
     return {"wall_s": wall, "value": line["value"], "fused_sweeps_per_s": fused["sweeps_per_s"],
             "mfu": line["mfu"], "launches": launched}
@@ -3652,7 +3692,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = result.pop("kernels") + [chains.pop("kernel"), config2.pop("kernel"), smc_out.pop("kernel")]
+    kernels = result.pop("kernels") + [chains.pop("kernel"), *config2.pop("kernels"), smc_out.pop("kernel")]
     log(json.dumps({"main_path": result, "chains": chains, "config2": config2, "config3": config3,
                     "collapsed": collapsed, "hdp": hdp_out, "irm": irm_out, "smc": smc_out, "split_merge": sm_out,
                     "sharded": sharded_out, "sharded_families": families_out, "bench_smoke": bench_out,

@@ -57,4 +57,12 @@ __device__ __forceinline__ uint4 linear_words(uint32_t seed, uint32_t row, uint3
   return philox4x32_10(make_uint4(row, group, 0u, 1u), make_uint2(seed, 0x5EEDu));
 }
 
+// The four words of one call with counter (group, 0, 0, 2): a slice update's
+// uniforms 4 group .. 4 group + 3, word j (x, y, z, w) for draw 4 group + j.
+// The counter's last word, 2, keeps the stream apart from the assignment
+// kernels' (0 and 1).
+__device__ __forceinline__ uint4 slice_words(uint32_t seed, uint32_t group) {
+  return philox4x32_10(make_uint4(group, 0u, 0u, 2u), make_uint2(seed, 0x5EEDu));
+}
+
 }  // namespace philox

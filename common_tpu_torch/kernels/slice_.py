@@ -7,18 +7,32 @@ tparams)`` resamples non-conjugate per-cluster latents (bbnc's p), and
 continuous priors. The targets are the package's own scores
 (`posterior_logpdf_unnorm`, `marginal_loglik`, the EPPF).
 
-The JAX package runs each loop as a bounded `lax.while_loop`. Here each
-loop is a Python loop whose test reads one device scalar on the host, so
-every target evaluation that decides a branch waits for the device: an
-update costs a few small synchronised steps. The caps (16 step-outs a
-side, 64 shrinks, the update a no-op when the shrinks run out) and the
-sequential coordinate scan over vector hypers are kept, so the sampler is
-the JAX package's. All values stay on the state's device.
+The JAX package runs each loop as a bounded `lax.while_loop`. Here an
+update takes one of two routes, chosen by its target:
+
+- a `HyperTarget` (`hp` builds one for a bbv Beta hyper or the CRP
+  concentration under a `log_exponential` prior): one launch of
+  `ops/slice_update.py` runs the whole update on the card against the
+  coordinate's own float64 term, and the host reads nothing (on the CPU
+  its plain version runs, testing on the host);
+- any other callable: a Python loop whose test reads one device scalar on
+  the host, so every target evaluation that decides a branch waits for the
+  device.
+
+The caps (16 step-outs a side, 64 shrinks, the update a no-op when the
+shrinks run out) and the sequential coordinate scan over vector hypers
+are kept on both, so the sampler is the JAX package's. All values stay on
+the state's device; each update draws its level's uniform first, with
+`uniform_open`.
 
 Under `utils.profiling.recording()` each update is the span
-`slice.update`, its two step-outs `slice.step_out` and its shrinkage
-`slice.shrink`; the loop tests are the reads `read.slice.step_out` and
-`read.slice.shrink`, and each target evaluation counts `slice.evals`.
+`slice.update`. On the loop, its two step-outs are `slice.step_out` and
+its shrinkage `slice.shrink`, the loop tests the reads
+`read.slice.step_out` and `read.slice.shrink`, and each target evaluation
+counts `slice.evals`. Each `HyperTarget` update counts
+`slice.fused_updates` and opens no loop span; on the CPU its plain
+version's tests and evaluations are recorded as the loop's reads and
+`slice.evals`.
 """
 
 from __future__ import annotations
@@ -30,6 +44,9 @@ from typing import Any, Callable, Dict
 import torch
 
 from common_tpu_torch import state as state_mod
+from common_tpu_torch.kernels import blocked
+from common_tpu_torch.likelihoods.bbv import BBV
+from common_tpu_torch.ops.slice_update import KIND_ALPHA, KIND_BETA, KIND_CRP, HyperTarget, slice_update
 from common_tpu_torch.rng import uniform_open
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.utils import profiling
@@ -49,11 +66,17 @@ def slice_sample(generator: torch.Generator, x0, logf: Callable, w: float = 1.0,
     batched: each entry is an independent update of its own target, and
     logf maps a tensor of x0's shape to one of log densities of that shape.
     Every loop test reads one device scalar: whether any entry still moves.
+    A `HyperTarget` logf (x0 one value) takes the update on the card instead.
     """
     with profiling.span("slice.update"):
         dev = generator.device
         x0 = torch.as_tensor(x0, device=dev).to(torch.float32)
         shape = x0.shape
+        if isinstance(logf, HyperTarget):
+            profiling.count("slice.fused_updates")
+            level = uniform_open(shape, generator)
+            return slice_update(x0, level, blocked._device_seed(generator, dev), logf, w, lower, upper,
+                                _MAX_STEPOUT, _MAX_SHRINK)
         profiling.count("slice.evals")
         y = logf(x0) + torch.log(uniform_open(shape, generator))  # logf(x0) - Exp(1)
         u = uniform_open(shape, generator)
@@ -133,6 +156,10 @@ def hp(state: MixtureState, data, generator: torch.Generator,
     hypers >= 0.5, say): hypers fitted to mixed early-sweep stats otherwise
     make empty-slot prior draws so extreme that the truncated sampler
     collapses to one cluster.
+
+    A bbv feature's float32 Beta hypers and the CRP concentration, each
+    under a `scalar_functions.log_exponential` prior, are updated on the
+    card (`HyperTarget`); every other hyper takes the host loop.
     """
     del data  # scored from the suffstats alone
     active = state.counts > 0
@@ -152,6 +179,14 @@ def hp(state: MixtureState, data, generator: torch.Generator,
             lo, hi = spec.get("bounds", (-math.inf, math.inf))
             width = spec.get("w", 1.0)
             x0 = hyper[pname]
+            rate = getattr(prior_fn, "exponential_rate", None)
+            if isinstance(lik, BBV) and rate is not None and x0.dtype == torch.float32:
+                kind, other = (KIND_ALPHA, hyper["beta"]) if pname == "alpha" else (KIND_BETA, hyper["alpha"])
+                target = HyperTarget(kind, rate, state.counts, 0, other, stats["n"], stats["heads"])
+                hyper[pname] = torch.stack([
+                    slice_sample(generator, x0[c], target.column(c), w=width, lower=lo, upper=hi)
+                    for c in range(x0.shape[0])])
+                continue
             if x0.dim() == 0:
                 def logf(v):
                     return prior_fn(v) + score({**hyper, pname: v})
@@ -173,12 +208,15 @@ def hp(state: MixtureState, data, generator: torch.Generator,
     if cluster is not None and not state.fixed:
         prior_fn = cluster["prior"]
         lo, hi = cluster.get("bounds", (1e-6, math.inf))
-
-        def logf_alpha(a):
-            s = dataclasses.replace(state, cluster_hp={"alpha": a})
-            return prior_fn(a) + state_mod.score_assignment(s)
-
         alpha = state.cluster_hp["alpha"]
+        rate = getattr(prior_fn, "exponential_rate", None)
+        if rate is not None and alpha.dtype == torch.float32:
+            logf_alpha = HyperTarget(KIND_CRP, rate, state.counts)
+        else:
+            def logf_alpha(a):
+                s = dataclasses.replace(state, cluster_hp={"alpha": a})
+                return prior_fn(a) + state_mod.score_assignment(s)
+
         new_alpha = slice_sample(generator, alpha, logf_alpha, w=cluster.get("w", 1.0),
                                  lower=lo, upper=hi)
         state = dataclasses.replace(state, cluster_hp={"alpha": new_alpha.to(alpha.dtype)})

@@ -66,6 +66,9 @@ def _declare(lib):
     lib.scatter_stats_launch.restype = ci
     lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.linear_assign_launch.restype = ci
+    cf = ctypes.c_float
+    lib.slice_update_launch.argtypes = [vp] * 8 + [ci] * 4 + [cf] * 4 + [ci] * 3 + [vp]
+    lib.slice_update_launch.restype = ci
     return lib
 
 

@@ -115,11 +115,16 @@ def philox_key(seed: torch.Tensor):
     return seed.reshape(()).to(torch.int64) & _MASK32, 0x5EED
 
 
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Float32 uniforms in (0, 1) from 32-bit words (`csrc/philox.cuh`
+    uniform_open): the top 24 bits, floored at 1e-7."""
+    return ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
+
+
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """Standard Gumbel draws from 32-bit words (`csrc/philox.cuh` gumbel_of_bits):
-    the uniform from the top 24 bits, floored at 1e-7, then -log(-log u)."""
-    u = ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
-    return -torch.log(-torch.log(u))
+    -log(-log u) of `uniform_from_bits`."""
+    return -torch.log(-torch.log(uniform_from_bits(bits)))
 
 
 def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int, chain: int = 0) -> torch.Tensor:

@@ -32,13 +32,15 @@ def _extract(x, field):
 
 
 def log_exponential(lam, field=None):
-    """log Exp(x | rate lam)."""
+    """log Exp(x | rate lam). The function carries its rate as
+    `exponential_rate`, so the slice sampler can evaluate it on the card."""
     lam = _f32(lam)
 
     def fn(x):
         x = _extract(x, field)
         return torch.log(lam) - lam * x
 
+    fn.exponential_rate = float(lam)
     return fn
 
 

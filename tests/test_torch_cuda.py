@@ -565,6 +565,87 @@ def test_cuda_every_sync_of_slice_hp_and_block_smc_is_a_counted_read(cuda_device
     assert not outside, f"{len(outside)} of {len(seen)} syncs outside a read span; first:\n{outside[0]}"
     reads = rec.reads()
     assert reads["smc.ess"] == W + 2 and rec.reads(within="smc.block_step").get("smc.ess") == 2
-    assert reads["slice.step_out"] >= 2 * 129 and reads["slice.shrink"] >= 129
+    # the 129 hyper updates run whole on the card: no slice read inside slice_hp
+    assert rec.counters["slice.fused_updates"] == 129
+    assert rec.reads(within="runner.slice_hp") == {}
     # each read span saw at least its own synchronisation, and nothing else did
     assert len(seen) >= sum(reads.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 32, 70])
+def test_cuda_slice_update_kernel_matches_plain_at_any_slot_count(cuda_device, k):
+    """Random counts (a third of the slots empty) and heads, each kind of
+    target, 20 updates of random coordinates with random levels and seeds
+    and a bound on each side: the kernel equals the plain version bit for
+    bit; K = 70 puts three slots on some lanes."""
+    from common_tpu_torch.ops import slice_update as su
+
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    d = 7
+    counts = torch.randint(1, 5000, (k,), generator=g, device=cuda_device, dtype=torch.int32)
+    counts[torch.rand(k, generator=g, device=cuda_device) < 1 / 3] = 0
+    n = counts.to(torch.float32)
+    heads = torch.floor(n[:, None] * torch.rand((k, d), generator=g, device=cuda_device))
+    other = 0.5 + 5 * torch.rand(d, generator=g, device=cuda_device)
+    before = su.slice_update.launches
+    for i in range(20):
+        kind = i % 3
+        target = su.HyperTarget(kind, 1.0, counts, i % d, other, n, heads)
+        x0 = 0.5 + 5 * torch.rand((), generator=g, device=cuda_device)
+        level = torch.rand((), generator=g, device=cuda_device).clamp_(1e-7, 1 - 2 ** -24)
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=g, device=cuda_device, dtype=torch.int32)
+        args = (x0, level, seed, target, 0.5, 0.5, 50.0, 16, 64)
+        assert torch.equal(su.slice_update(*args), su.slice_update_plain(*args)), (k, i)
+    assert su.slice_update.launches == before + 20
+
+
+@pytest.mark.cuda
+def test_cuda_slice_update_kernel_matches_plain_over_an_iteration(cuda_device):
+    """Config 2's shape (100k x 64 binary rows, K 32), a fused sweep, then
+    `slice_.hp` on the Beta hypers and the concentration: each of the 129
+    updates the kernel made equals the plain version's (`slice_update_plain`,
+    host tests) run on the card from the same x0, level, seed and state, bit
+    for bit, and lies on its slice."""
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.bench import config2_hp_specs
+    from common_tpu_torch.kernels import blocked, slice_
+    from common_tpu_torch.ops import slice_update as su
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n, d = 100_000, 64
+    profiles = torch.rand((8, d), generator=g, device=cuda_device)
+    rows = torch.randint(0, 8, (n,), generator=g, device=cuda_device)
+    xb = (torch.rand((n, d), generator=g, device=cuda_device) < profiles[rows]).to(torch.float32)
+    data = ((xb, torch.ones(n, device=cuda_device)),)
+    defn = st.model_definition(n, [models.bbv(d)], k_max=32)
+    s = st.initialize(defn, data, rng(0, cuda_device).generator, cluster_hp={"alpha": 1.0})
+    gen = rng(1, cuda_device).generator
+    for _ in range(3):
+        s = blocked.sweep_fused(s, data, gen)
+    calls = []
+    real = slice_.slice_update
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    launches = su.slice_update.launches
+    slice_.slice_update = recording
+    try:
+        post = slice_.hp(s, data, gen, **config2_hp_specs())
+    finally:
+        slice_.slice_update = real
+    assert len(calls) == 2 * d + 1 and su.slice_update.launches - launches == 2 * d + 1
+    assert [c[0][3].kind for c in calls] == [su.KIND_ALPHA] * d + [su.KIND_BETA] * d + [su.KIND_CRP]
+    for i, (args, out) in enumerate(calls):
+        want = su.slice_update_plain(*args)
+        assert torch.equal(out, want), (i, float(out), float(want))
+        x0, level, target = args[0], args[1], args[3]
+        assert float(target(out) - target(x0)) >= float(torch.log(level.double())) - 1e-9, i
+    assert torch.equal(post.hypers[0]["alpha"], torch.stack([out for _, out in calls[:d]]))
+    assert torch.equal(post.hypers[0]["beta"], torch.stack([out for _, out in calls[d:2 * d]]))
+    assert torch.equal(post.cluster_hp["alpha"], calls[-1][1])
+    moved = sum(int(out != args[0]) for args, out in calls)
+    assert moved == len(calls)
