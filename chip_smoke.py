@@ -123,15 +123,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    tokens, V = 10,000 in 4 planted blocks of 2,500 words (doc d draws from
    block d % 4), 1% of positions held out, K = 32, made on the card.
    (a) blocked_sweep_dense(doc_chunk=20,000) + sample_beta(max_count=50) +
-   score_joint: 3 sweeps untimed, 3 from the same start timed with CUDA
-   events (utils/profiling.benchmark), 15 more. Checks the count tables
+   score_joint: 18 sweeps, untimed (the benchmark's cell
+   hdp_lda_1m_docs.dense times them through the runner). Checks the count tables
    equal a recount of z, each doc_topic row sums to its doc's tokens, beta
    on the simplex, held-out z unmoved, the score above the initial state's,
    the held-out perplexity under 5,000, no kernel launched, the replay of
-   2 dense sweeps + sample_beta; prints sweeps/s,
-   tokens/s, peak memory, the ms of the draws, the sweep and the CRT, the
-   idle share of a traced sweep, the float64 gap of score_joint and the
-   largest count slot, beside the JAX record's 2887.67 and the planted
+   2 dense sweeps + sample_beta, and one runner step of
+   [assign_blocked_dense(doc_chunk=20,000), beta] under
+   `set_sync_debug_mode("error")` equal to blocked_sweep_dense +
+   sample_beta bit for bit; prints peak memory, the float64 gap of
+   score_joint, the largest count slot and the held-out perplexity, beside
+   the JAX record's 2887.67 and the planted
    floor of 2,500 (history, no bar). (b) The runner's HDP family,
    [assign_blocked, concentrations], 2 iterations on the flat corpus and one
    step under `set_sync_debug_mode("error")`: finite alpha and gamma,
@@ -326,7 +328,7 @@ THETA9 = 3  # nuts_theta iterations on a bbnc state over phase 9's binary column
 # 50, 32, 10_000, 3, ...) at bench.py:1550), not cut: D docs of L tokens over V words in
 # BLOCKS planted blocks, K topics, HELD10 of token positions held out, doc_chunk CHUNK10
 D10, L10, K10, V10, BLOCKS10, HELD10, CHUNK10 = 1_000_000, 50, 32, 10_000, 4, 0.01, 20_000
-SWEEPS10, MORE10, RUNNER10 = 3, 15, 2  # the timed call, the sweeps after it (18 in all), runner iterations
+SWEEPS10, RUNNER10 = 18, 2  # the chain's sweeps, runner iterations
 JAX_PPL10 = 2887.67  # BENCH_r05.json summary.hdp: a TPU run with threefry draws; history, never a bar
 # (c) examples/lda_topics.py's corpus through the collapsed runner; (d) online LDA on the
 # first LDA10 training docs of (a)'s corpus (docs cut, not width), docs LDA10.. + HELD_LDA10 held out
@@ -2179,8 +2181,9 @@ def _hdp_float64_gap(s) -> float:
 
 
 def _hdp_chain(dev) -> dict:
-    """(a): the record's chain, dense sweeps + the CRT beta draw, 3 untimed, 3
-    timed from the same start, 15 more; then (b), the runner on its end."""
+    """(a): the record's chain, 18 dense sweeps + the CRT beta draw; the dense route through the runner
+    once, against the same sweep bit for bit; then (b), the runner's flat
+    route on its end."""
     import torch
 
     from common_tpu_torch import rng, topic
@@ -2208,47 +2211,13 @@ def _hdp_chain(dev) -> dict:
         return s, torch.stack(scores)
 
     _zero_launches()
-    out = {}
-
-    def timed():
-        out["s"], out["scores"] = chain(s0, SWEEPS10)
-
     torch.cuda.reset_peak_memory_stats()
-    timing = profiling.benchmark(timed, iters=1, warmup=1)
+    s, scores = chain(s0, SWEEPS10)
     peak = profiling.device_memory_stats()["allocated_bytes.all.peak"]
-    sweeps_per_s = SWEEPS10 / timing["median_s"]
-    tokens_per_s = sweeps_per_s * D10 * L10
     log(f"blocked_sweep_dense(doc_chunk={CHUNK10}) + sample_beta(max_count={L10}) + score_joint x "
-        f"{SWEEPS10}, timed with CUDA events after an untimed call: {timing['median_s']:.3f} s, "
-        f"{sweeps_per_s:.3f} sweeps/s, {tokens_per_s:.4e} tokens/s (all {D10 * L10} positions a sweep, "
-        f"as the record counts; the JAX record 6.664e7 on a TPU, history); peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    s, more = chain(out["s"], MORE10)
+        f"{SWEEPS10}: peak memory {peak / 2**30:.2f} GiB")
     launched = _launches()
     require(not any(launched.values()), f"config 4 launched a hand-written kernel: {launched}")
-
-    # where a sweep's time goes: the draws, the counts (the sweep's doc_topic
-    # scatter and topic_word index_add over all docs at once), the rest is
-    # score-and-assign; then the CRT + beta draw
-    valid = mask > 0
-
-    def counts():
-        zi = torch.where(valid, s.z.view(D10, L10).long(), K10)
-        dk = torch.zeros((D10, K10 + 1), device=dev)
-        dk.scatter_add_(1, zi, torch.ones(zi.shape, device=dev))
-        flat = torch.where(valid.reshape(-1), s.z.long() * V10 + words.reshape(-1), K10 * V10)
-        return dk, topic.hdp._segment_count(flat, K10 * V10)
-
-    draw_ms = cuda_ms(lambda: topic.hdp._draw_phi_theta(s, gen), 3)
-    count_ms = cuda_ms(counts, 3)
-    sweep_ms = cuda_ms(lambda: topic.blocked_sweep_dense(s, words, mask, gen, doc_chunk=CHUNK10), 3)
-    crt_ms = cuda_ms(lambda: topic.sample_beta(s, gen, max_count=L10), 3)
-    score_ms = cuda_ms(lambda: topic.score_joint(s), 3)
-    log(f"ms: dense sweep {sweep_ms:.2f} (phi, theta draws {draw_ms:.2f}; counts {count_ms:.2f}; "
-        f"score-and-assign {sweep_ms - draw_ms - count_ms:.2f}), CRT + beta draw {crt_ms:.2f}, "
-        f"score_joint {score_ms:.2f}")
-    idle, launched_n = profile_sweep(lambda: topic.sample_beta(
-        topic.blocked_sweep_dense(s, words, mask, gen, doc_chunk=CHUNK10), gen, max_count=L10))
 
     require_recount(s, data, "after 18 sweeps")
     require(torch.equal(s.doc_topic.sum(-1), mask.sum(-1)), "a doc_topic row does not sum to its doc's tokens")
@@ -2256,7 +2225,7 @@ def _hdp_chain(dev) -> dict:
     require(bool((s.beta > 0).all()) and abs(beta_sum - 1.0) <= 1e-5, f"beta off the simplex: sum {beta_sum}")
     require(torch.equal(s.z.view(D10, L10)[held], s0.z.view(D10, L10)[held]), "a held-out position's z moved")
     score, gap, slot = topic.score_joint(s).item(), _hdp_float64_gap(s), s.topic_total.max().item()
-    trace = torch.cat([out["scores"], more]).tolist()
+    trace = scores.tolist()
     log(f"score_joint over 18 sweeps: {trace[0]:.6e} -> {score:.6e} (initial {score0:.6e}); fp32 vs "
         f"float64 on the card: relative gap {gap:.3e}; largest count slot {slot:.0f} (float32 exact to "
         f"{2 ** 24}); active topics {int(s.active_topics())}")
@@ -2274,12 +2243,33 @@ def _hdp_chain(dev) -> dict:
         return x
 
     replayed = replay("config 4: 2 dense sweeps + sample_beta", dense_pair)
-    chain_rec = {"sweeps_per_s": sweeps_per_s, "tokens_per_s": tokens_per_s, "timed_s": timing["median_s"],
-                 "peak_gib": peak / 2**30, "sweep_ms": sweep_ms, "draw_ms": draw_ms, "count_ms": count_ms,
-                 "crt_beta_ms": crt_ms,
-                 "score_ms": score_ms, "idle_share": idle, "device_ops": launched_n, "score_joint": score,
+
+    # the dense route on the runner's normal path: one step under
+    # set_sync_debug_mode("error"), equal to the sweep + beta draw it wraps
+    dense_config = [("assign_blocked_dense", {"doc_chunk": CHUNK10}), ("beta", {})]
+    t0 = time.perf_counter()
+    dense_step = make_step(dense_config, data, HDP_FAMILY)
+    build_s = time.perf_counter() - t0
+    g_run, g_ref = rng(SEED + 307, dev).generator, rng(SEED + 307, dev).generator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d_state = dense_step(s, g_run)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = topic.sample_beta(topic.blocked_sweep_dense(s, words, mask, g_ref, doc_chunk=CHUNK10), g_ref,
+                             max_count=HDP_FAMILY["default_kw"](data)["max_count"])
+    require(_hdp_same(d_state, want), "the runner's assign_blocked_dense + beta differs from "
+            "blocked_sweep_dense + sample_beta")
+    require_recount(d_state, data, "runner dense step")
+    log(f"runner [assign_blocked_dense(doc_chunk={CHUNK10}), beta]: make_step {build_s:.2f} s (the corpus's "
+        f"doc length found on the host), one step under set_sync_debug_mode('error'): no host wait; equal to "
+        f"blocked_sweep_dense + sample_beta bit for bit")
+    chain_rec = {"peak_gib": peak / 2**30, "score_joint": score,
                  "score_f64_rel_gap": gap, "largest_slot": slot, "active_topics": int(s.active_topics()),
-                 "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace, "replay": replayed}
+                 "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace, "replay": replayed,
+                 "runner_dense_equal": True}
 
     # (b) the runner's HDP family on the same corpus, from (a)'s end
     config = [("assign_blocked", {}), ("concentrations", {})]

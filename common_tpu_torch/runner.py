@@ -22,8 +22,10 @@ to the host the read `read.runner.trace`.
 A state family supplies its kernel registry, joint score, counts,
 assignments, saturation test and default kernel keywords: `MixtureState`
 (`KERNELS` below), `HDPState` (`HDP_KERNELS`: assign, assign_blocked,
-beta, concentrations, with the CRT cap `max_count` worked out once, on the
-host, when the runner is built) and `IRMState` (`IRM_KERNELS`: assign, over
+assign_blocked_dense, beta, concentrations, with the CRT cap `max_count`
+and the dense route's doc length worked out once, on the host, when the
+runner is built; that route needs a doc-major rectangular corpus) and
+`IRMState` (`IRM_KERNELS`: assign, over
 one `domain` or all, assign_blocked, ew_domain_alpha, grid_domain_alpha;
 its data is the relation views, its counts and assignments are those of
 all domains concatenated).
@@ -137,6 +139,18 @@ def _k_hdp_blocked(state, data, generator, **kw):
     return hdp.blocked_sweep(state, data, generator)
 
 
+def _k_hdp_blocked_dense(state, data, generator, doc_chunk=None, doc_len=None, **kw):
+    # the flat corpus viewed as its [D, L] doc-major layout; doc_len is the
+    # static L that `_hdp_default_kw` found on the host, None for any other
+    # layout; D is the state's, a static shape
+    D = state.n_docs
+    if doc_len is None or D * doc_len != data.words.shape[0]:
+        raise ValueError("assign_blocked_dense needs a doc-major rectangular corpus (hdp.dense_token_data) "
+                         f"of the state's {D} docs: {data.words.shape[0]} tokens are not D rows of L in doc order")
+    return hdp.blocked_sweep_dense(state, data.words.view(D, doc_len), data.mask.view(D, doc_len),
+                                   generator, doc_chunk=doc_chunk)
+
+
 def _k_hdp_beta(state, data, generator, **kw):
     return hdp.sample_beta(state, generator, kw["max_count"])
 
@@ -147,21 +161,56 @@ def _k_hdp_concentrations(state, data, generator, **kw):
         kw.get("a_gamma", 1.0), kw.get("b_gamma", 1.0))
 
 
-# every HDP kernel gets max_count (the longest document) unless its config names one
+# every HDP kernel gets max_count (the longest document) and doc_len (the dense
+# route's L, or None) unless its config names them
 HDP_KERNELS: Dict[str, Callable] = {
     "assign": _k_hdp_assign,
     "assign_blocked": _k_hdp_blocked,
+    "assign_blocked_dense": _k_hdp_blocked_dense,  # kw: doc_chunk; a doc-major rectangular corpus
     "beta": _k_hdp_beta,
     "concentrations": _k_hdp_concentrations,  # kw: a_alpha, b_alpha, a_gamma, b_gamma
 }
 
 
 def _hdp_default_kw(data) -> dict:
-    """The static CRT cap: the most valid tokens in any doc bounds every n_dk.
-    Worked out once, on the host."""
+    """The static CRT cap: the most valid tokens in any doc bounds every n_dk;
+    and the dense route's doc length L where the corpus is doc-major and
+    rectangular as `hdp.dense_token_data` builds it (T = D L tokens, doc ids
+    0..D-1 each repeated L times in a row), else None. Worked out once, on
+    the host."""
     doc_ids, mask = data.doc_ids.cpu().numpy(), data.mask.cpu().numpy()
     lengths = np.bincount(doc_ids, weights=mask) if doc_ids.size else np.ones(1)
-    return {"max_count": max(int(np.max(lengths)), 1)}
+    D = int(doc_ids.max()) + 1 if doc_ids.size else 0
+    L = doc_ids.size // D if D else 0
+    dense = L > 0 and D * L == doc_ids.size and bool((doc_ids.reshape(D, L) == np.arange(D)[:, None]).all())
+    return {"max_count": max(int(np.max(lengths)), 1), "doc_len": L if dense else None}
+
+
+def _host_copy(assignments: torch.Tensor, state, stream):
+    """The mixture and IRM families' trace copy: waits for the device."""
+    return assignments.cpu().numpy(), None
+
+
+def _hdp_host_z(z: torch.Tensor, state, stream):
+    """A chunk's z on the host: one byte a token where the topics fit
+    (K <= 256), into pinned memory, on a stream of its own that waits for
+    the chunk's sweeps and overlaps the next chunk. At config 4's 1M docs x
+    50 tokens a chunk of 4 sweeps is 200 MB (3.7 ms on an H100), in place of
+    800 MB of int32 into pageable memory (0.44 s of a 0.88 s step, the card
+    waiting). `stream` is the runner's copy stream (None off the card).
+    Returns the array and the event after which it is whole."""
+    if state.n_topics <= 256:
+        z = z.to(torch.uint8)
+    if stream is None:
+        return z.cpu().numpy(), None
+    stream.wait_stream(torch.cuda.current_stream(z.device))
+    out = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        out.copy_(z, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    z.record_stream(stream)  # the source outlives the copy
+    return out.numpy(), done
 
 
 def _hdp_saturated(st) -> torch.Tensor:
@@ -201,15 +250,17 @@ def _irm_saturated(st) -> torch.Tensor:
 
 
 # a family: kernel registry, score_joint, counts, assignments, is_saturated,
-# and the default keywords of its kernels given the data
+# the default keywords of its kernels given the data, and the host copy of a
+# chunk's assignments
 MIXTURE_FAMILY = dict(kernels=KERNELS, score_joint=state_mod.score_joint, counts=lambda st: st.counts,
                       assignments=lambda st: st.assignments, is_saturated=state_mod.is_saturated,
-                      default_kw=lambda data: {})
+                      default_kw=lambda data: {}, host_assignments=_host_copy)
 HDP_FAMILY = dict(kernels=HDP_KERNELS, score_joint=hdp.score_joint, counts=lambda st: st.topic_total,
-                  assignments=lambda st: st.z, is_saturated=_hdp_saturated, default_kw=_hdp_default_kw)
+                  assignments=lambda st: st.z, is_saturated=_hdp_saturated, default_kw=_hdp_default_kw,
+                  host_assignments=_hdp_host_z)
 IRM_FAMILY = dict(kernels=IRM_KERNELS, score_joint=irm_state.score_joint, counts=lambda st: torch.cat(st.counts),
                   assignments=lambda st: torch.cat(st.assignments), is_saturated=_irm_saturated,
-                  default_kw=lambda data: {})
+                  default_kw=lambda data: {}, host_assignments=_host_copy)
 
 
 def _family_of(state) -> dict:
@@ -294,8 +345,11 @@ class runner:
         self._family = _family_of(state)
         self._config = normalize_config(kernel_config, self._family["kernels"])
         self._step = make_step(self._config, data, self._family)
-        self._assign_width = int(self._family["assignments"](state).shape[0])
+        assignments = self._family["assignments"](state)
+        self._assign_width = int(assignments.shape[0])
         self._assignment_trace = []
+        self._copy_stream = torch.cuda.Stream(assignments.device) if assignments.is_cuda else None
+        self._copies = []  # events after which the host's assignment arrays are whole
         self._score_trace = []
         self._k_active_trace = []
         self._jsonl_path = jsonl_path
@@ -308,7 +362,10 @@ class runner:
         )
         if collect:
             with profiling.span("read.runner.trace"):
-                self._assignment_trace.append(trace["assignments"].cpu().numpy())
+                z, copied = self._family["host_assignments"](trace["assignments"], self._state, self._copy_stream)
+                self._assignment_trace.append(z)
+                if copied is not None:
+                    self._copies.append(copied)
                 self._score_trace.append(trace["score"].cpu().numpy())
                 self._k_active_trace.append(trace["k_active"].cpu().numpy())
         if self._jsonl_path is not None:
@@ -350,11 +407,14 @@ class runner:
 
     @property
     def assignment_trace(self):
-        return (
-            np.concatenate(self._assignment_trace)
-            if self._assignment_trace
-            else np.zeros((0, self._assign_width), np.int32)
-        )
+        if not self._assignment_trace:
+            return np.zeros((0, self._assign_width), np.int32)
+        for copied in self._copies:
+            copied.synchronize()
+        self._copies.clear()
+        parts = self._assignment_trace
+        # the HDP family keeps one byte a token; the trace reads as int32
+        return np.concatenate(parts, dtype=np.int32 if parts[0].dtype == np.uint8 else None)
 
     @property
     def score_trace(self):

@@ -49,6 +49,14 @@ A rank draws noise only for its own tokens or docs, from its own stream
 (`mesh.data_generator`); at one data rank that stream is the chain's
 generator, so each sharded sweep then equals its one-device sweep bit for
 bit. torch has no global sharded array: each rank holds its shard.
+
+Under `utils.profiling.recording()`: `blocked_sweep_dense` is the span
+`hdp.sweep`, its phi and theta draws `hdp.draw`, the docs' score, noise,
+argmax and doc counts `hdp.assign` (counter `hdp.doc_chunks`, a chunk of
+docs each) and the topic-word count `hdp.topic_word`; `crt_sample` is
+`hdp.crt` (counter `hdp.crt_batches`, a Bernoulli batch each), the
+Dirichlet draw of beta `hdp.beta`, and `_max_count`'s read of the largest
+doc-topic count `read.hdp.max_count`.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from common_tpu_torch import validator
 from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.rng import beta as beta_draw
 from common_tpu_torch.rng import standard_gamma, uniform_open
+from common_tpu_torch.utils import profiling
 
 NOISE_TOKENS = 4096  # tokens whose Gumbel noise the collapsed sweep draws in one call
 
@@ -203,17 +212,22 @@ def crt_sample(generator: torch.Generator, counts, conc, max_count: int) -> torc
 
     m = sum_{i=0}^{n-1} Bernoulli(a / (a + i)), as max_count Bernoulli
     batches of counts' shape, one at a time (exact; zero counts give zero
-    tables). conc broadcasts against counts.
+    tables), their probabilities worked out in one launch. conc broadcasts
+    against counts.
     """
     counts = torch.as_tensor(counts, device=generator.device)
     conc = torch.as_tensor(conc, device=counts.device)
     if not conc.is_floating_point():
         conc = conc.float()
+    n = int(max_count)
     m = torch.zeros(counts.shape, dtype=torch.int32, device=counts.device)
-    for i in range(int(max_count)):
-        p = conc / (conc + i)
-        b = torch.rand(counts.shape, generator=generator, device=counts.device, dtype=conc.dtype) < p
-        m += b & (counts > i)
+    profiling.count("hdp.crt_batches", n)
+    with profiling.span("hdp.crt"):
+        i = torch.arange(n, device=counts.device, dtype=conc.dtype).reshape((n,) + (1,) * conc.dim())
+        p = conc / (conc + i)  # [n, ...]: batch i's probability
+        for k in range(n):
+            b = torch.rand(counts.shape, generator=generator, device=counts.device, dtype=conc.dtype) < p[k]
+            m += b & (counts > k)
     return m
 
 
@@ -233,9 +247,10 @@ def _dirichlet(conc: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 def _beta_from_tables(m_k, gamma, generator):
     """(beta_1..K, beta_rest) ~ Dir(m_1 + 1e-8, ..., m_K + 1e-8, gamma), floored
     at 1e-12 and renormalised (an exact 0 poisons score_joint)."""
-    beta = _dirichlet(torch.cat([m_k + 1e-8, gamma.reshape(1).to(m_k.dtype)]), generator)
-    beta = beta.clamp(min=1e-12)
-    return beta / beta.sum()
+    with profiling.span("hdp.beta"):
+        beta = _dirichlet(torch.cat([m_k + 1e-8, gamma.reshape(1).to(m_k.dtype)]), generator)
+        beta = beta.clamp(min=1e-12)
+        return beta / beta.sum()
 
 
 def _reduce(values, mesh):
@@ -257,7 +272,7 @@ def _max_count(state: HDPState, mesh=None) -> int:
     top = state.doc_topic.max()
     if mesh is not None:
         top = mesh_mod.all_reduce_max(top, mesh.data_group)
-    return max(int(top), 1)
+    return max(int(profiling.read(top, "hdp.max_count")), 1)
 
 
 def sample_beta(state: HDPState, generator: torch.Generator, max_count: Optional[int] = None,
@@ -361,7 +376,8 @@ def _draw_theta(state: HDPState, generator: torch.Generator) -> torch.Tensor:
 
 def _draw_phi_theta(state: HDPState, generator: torch.Generator):
     """phi | z [K, V] and theta | z [D, K]."""
-    return _draw_phi(state, generator), _draw_theta(state, generator)
+    with profiling.span("hdp.draw"):
+        return _draw_phi(state, generator), _draw_theta(state, generator)
 
 
 def _log_clipped(p: torch.Tensor) -> torch.Tensor:
@@ -462,9 +478,10 @@ def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator
     doc's L tokens. Peak memory is [doc_chunk, L, K]; doc_chunk=None takes
     about 2^26 elements (256 MB of float32) a table, the JAX default.
     """
-    phi, theta = _draw_phi_theta(state, generator)
-    z, dk, kw = _assign_docs(state, words, mask, phi, theta, generator, doc_chunk)
-    return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
+    with profiling.span("hdp.sweep"):
+        phi, theta = _draw_phi_theta(state, generator)
+        z, dk, kw = _assign_docs(state, words, mask, phi, theta, generator, doc_chunk)
+        return dataclasses.replace(state, z=z, doc_topic=dk, topic_word=kw, topic_total=kw.sum(-1))
 
 
 def _assign_docs(state: HDPState, words, mask, phi, theta, generator: torch.Generator,
@@ -479,21 +496,23 @@ def _assign_docs(state: HDPState, words, mask, phi, theta, generator: torch.Gene
     valid = mask > 0
     z_old = state.z.view(D, L)
     z = torch.empty_like(z_old)
-    dk = torch.empty((D, K), dtype=torch.float32, device=z.device)
-    for a in range(0, D, step):
-        b = min(D, a + step)
-        logp = log_phi_t[words[a:b]]                 # [dc, L, K]
-        logp += log_theta[a:b, None, :]
-        zc = torch.where(valid[a:b], _perturbed_argmax(logp, generator), z_old[a:b])
-        del logp
-        z[a:b] = zc
-        zi = torch.where(valid[a:b], zc.long(), K)   # masked -> the scratch column
-        counts = torch.zeros((b - a, K + 1), dtype=torch.float32, device=z.device)
-        counts.scatter_add_(1, zi, torch.ones(zi.shape, dtype=torch.float32, device=z.device))
-        dk[a:b] = counts[:, :K]
+    dk = torch.zeros((D, K + 1), dtype=torch.float32, device=z.device)  # column K: the masked tokens
+    ones = torch.ones((min(step, D), L), dtype=torch.float32, device=z.device)
+    profiling.count("hdp.doc_chunks", -(-D // step))
+    with profiling.span("hdp.assign"):
+        for a in range(0, D, step):
+            b = min(D, a + step)
+            logp = log_phi_t[words[a:b]]                 # [dc, L, K]
+            logp += log_theta[a:b, None, :]
+            torch.where(valid[a:b], _perturbed_argmax(logp, generator), z_old[a:b], out=z[a:b])
+            del logp
+            zi = torch.where(valid[a:b], z[a:b].long(), K)
+            dk[a:b].scatter_add_(1, zi, ones[:b - a])
+        dk = dk[:, :K].contiguous()
     z = z.reshape(-1)
-    flat_kw = torch.where(valid.reshape(-1), z.long() * V + words.reshape(-1), K * V)
-    return z, dk, _segment_count(flat_kw, K * V).view(K, V)
+    with profiling.span("hdp.topic_word"):
+        flat_kw = torch.where(valid.reshape(-1), z.long() * V + words.reshape(-1), K * V)
+        return z, dk, _segment_count(flat_kw, K * V).view(K, V)
 
 
 # ---------------------------------------------------------------------------

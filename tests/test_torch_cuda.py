@@ -649,3 +649,32 @@ def test_cuda_slice_update_kernel_matches_plain_over_an_iteration(cuda_device):
     assert torch.equal(post.cluster_hp["alpha"], calls[-1][1])
     moved = sum(int(out != args[0]) for args, out in calls)
     assert moved == len(calls)
+
+
+@pytest.mark.cuda
+def test_cuda_hdp_runner_trace_is_each_sweeps_z(cuda_device):
+    """The HDP runner copies each chunk's z on a stream of its own, one byte a
+    token into pinned memory: the trace read back after runs of 3 and 2
+    sweeps is each sweep's z, as the same steps give it on the card."""
+    from common_tpu_torch import rng, topic
+    from common_tpu_torch.runner import HDP_FAMILY, make_step, runner
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    D, L, V, K = 3000, 40, 500, 12
+    words = torch.randint(0, V, (D, L), generator=g, device=cuda_device)
+    mask = (torch.rand((D, L), generator=g, device=cuda_device) > 0.05).float()
+    data = topic.dense_token_data(words, mask)
+    s = topic.initialize(data, K, V, rng(2, cuda_device).generator, n_docs=D)
+    config = [("assign_blocked_dense", {"doc_chunk": 700}), ("beta", {})]
+    step, gen, zs, x = make_step(config, data, HDP_FAMILY), rng(3, cuda_device).generator, [], s
+    for _ in range(5):
+        x = step(x, gen)
+        zs.append(x.z.cpu().numpy())
+    run = runner(None, data, s, config)
+    gen = rng(3, cuda_device).generator
+    run.run(gen, 3)
+    run.run(gen, 2)
+    assert [a.dtype for a in run._assignment_trace] == [np.uint8, np.uint8]
+    trace = run.assignment_trace
+    assert trace.dtype == np.int32 and np.array_equal(trace, np.stack(zs))
+    assert torch.equal(run.get_latent().z, x.z)

@@ -360,11 +360,15 @@ def test_hdp_runner_family(tmp_path):
     view = variadic_dataview(rows, pad_to=600, device="cpu")
     data = topic.token_data(view)
     state = topic.initialize(view, 6, V, _gen(0))
-    assert set(HDP_KERNELS) == set(jrunner._hdp_kernels())
+    # the JAX runner's kernels, and the port's dense route (`assign_blocked_dense`,
+    # held to blocked_sweep_dense in tests/test_torch_hdp_reference.py)
+    assert set(HDP_KERNELS) == set(jrunner._hdp_kernels()) | {"assign_blocked_dense"}
     jview = j_variadic(rows, pad_to=600)
     want = jrunner._family_of(jtopic.initialize(jview, 6, V, jax.random.key(0)))["default_kw"](
         jtopic.token_data(jview))
-    assert _hdp_default_kw(data) == want == {"max_count": 30}
+    assert want == {"max_count": 30}
+    # the port's defaults add the dense route's doc length: None, this corpus is ragged
+    assert _hdp_default_kw(data) == {**want, "doc_len": None}
     path = tmp_path / "sweeps.jsonl"
     run = runner(None, data, state, [("assign_blocked", {}), ("beta", {}), ("concentrations", {})],
                  jsonl_path=str(path))

@@ -87,7 +87,28 @@ def _run_blocked_run():
     return smc.run_blocked(parts, data, _gen(6), block=BLOCK, warmup=WARMUP)
 
 
-RUNS = {"slice_hp": _slice_hp_run, "sweep_fused": _sweep_fused_run, "run_blocked": _run_blocked_run}
+HDP_D, HDP_L, HDP_CHUNK, HDP_STEPS = 40, 10, 16, 2
+
+
+def _hdp_start():
+    from common_tpu_torch import topic
+
+    g = torch.Generator().manual_seed(7)
+    words = torch.randint(0, 30, (HDP_D, HDP_L), generator=g)
+    mask = (torch.rand((HDP_D, HDP_L), generator=g) > 0.1).float()
+    data = topic.dense_token_data(words, mask)
+    return data, topic.initialize(data, 5, 30, _gen(8), n_docs=HDP_D)
+
+
+def _hdp_dense_run():
+    data, s = _hdp_start()
+    run = runner(None, data, s, [("assign_blocked_dense", {"doc_chunk": HDP_CHUNK}), ("beta", {})])
+    run.run(_gen(9), HDP_STEPS)
+    return [run.get_latent(), run.score_trace, run.assignment_trace]
+
+
+RUNS = {"slice_hp": _slice_hp_run, "sweep_fused": _sweep_fused_run, "run_blocked": _run_blocked_run,
+        "hdp_dense": _hdp_dense_run}
 
 
 @pytest.fixture(scope="module")
@@ -161,6 +182,30 @@ def test_the_runner_and_slice_spans(recorded):
     assert reads["slice.step_out"] >= 2 * updates and reads["slice.shrink"] >= updates
     assert rec.counters["slice.evals"] == updates + reads["slice.step_out"] + reads["slice.shrink"]
     assert s["runner.step"]["host_s"] >= s["runner.slice_hp"]["host_s"] >= s["slice.update"]["host_s"]
+
+
+def test_hdp_dense_spans_and_counters(recorded):
+    """Runner steps of the dense HDP route: the sweep and its stages, the
+    CRT and beta's draw, a chunk of docs and a Bernoulli batch counted each.
+    The start's beta draw (in `initialize`, given no CRT cap) reads the
+    largest doc-topic count once; the runner's steps, with their static
+    cap, read nothing but the traces and the saturation test."""
+    rec = recorded["hdp_dense"][2]
+    s = rec.summary()
+    n = HDP_STEPS
+    assert {k: v["calls"] for k, v in s.items()} == {
+        "runner.step": n, "runner.assign_blocked_dense": n, "runner.beta": n, "hdp.sweep": n, "hdp.draw": n,
+        "hdp.assign": n, "hdp.topic_word": n, "hdp.crt": n + 1, "hdp.beta": n + 1,
+        "read.hdp.max_count": 1, "read.runner.trace": 1, "read.runner.saturated": 1}
+    first_cap = int(_hdp_start()[1].doc_topic.max())  # initialize's sample_beta, before the steps
+    assert rec.counters == {"hdp.doc_chunks": n * math.ceil(HDP_D / HDP_CHUNK),
+                            "hdp.crt_batches": first_cap + n * HDP_L}
+    parents = Counter((r[0], rec.spans[r[3]][0] if r[3] >= 0 else None) for r in rec.spans)
+    assert parents[("hdp.sweep", "runner.assign_blocked_dense")] == parents[("hdp.crt", "runner.beta")] == n
+    assert parents[("hdp.draw", "hdp.sweep")] == parents[("hdp.assign", "hdp.sweep")] == n
+    assert parents[("hdp.topic_word", "hdp.sweep")] == parents[("hdp.beta", "runner.beta")] == n
+    assert rec.reads(within="runner.step") == {}
+    assert rec.reads() == {"hdp.max_count": 1, "runner.trace": 1, "runner.saturated": 1}
 
 
 def test_sweep_fused_spans(recorded):
