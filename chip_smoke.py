@@ -124,10 +124,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    block d % 4), 1% of positions held out, K = 32, made on the card.
    (a) blocked_sweep_dense(doc_chunk=20,000) + sample_beta(max_count=50) +
    score_joint: 18 sweeps, untimed (the benchmark's cell
-   hdp_lda_1m_docs.dense times them through the runner). Checks the count tables
+   hdp_lda_1m_docs.dense times them through the runner). Before and after
+   them, `ops.hdp_assign` on one chunk of 20,000 docs: one launch under
+   `set_sync_debug_mode("error")`, z and the doc counts equal to the plain
+   version's bit for bit; prints the
+   kernel's ms a chunk, the plain version's, the old ATen route's and the
+   whole stage's a sweep. Checks the count tables
    equal a recount of z, each doc_topic row sums to its doc's tokens, beta
    on the simplex, held-out z unmoved, the score above the initial state's,
-   the held-out perplexity under 5,000, no kernel launched, the replay of
+   the held-out perplexity under 5,000, hdp_assign launched 50 times a
+   sweep and no other kernel, the replay of
    2 dense sweeps + sample_beta, and one runner step of
    [assign_blocked_dense(doc_chunk=20,000), beta] under
    `set_sync_debug_mode("error")` equal to blocked_sweep_dense +
@@ -217,7 +223,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    `make_sharded_sweep` against `relational.sweep` on phase 11's 4096 x
    4096 relation, K_max 32, in torch's default mode (the table and the
    suffstats are order-fixed segment sums). Each pair equal bit for bit (z, count
-   tables, beta; assignments, counts, suffstats), no kernel launched;
+   tables, beta; assignments, counts, suffstats), no kernel launched but
+   the dense sweeps' hdp_assign, 50 a sweep;
    prints ms a sweep of both sides, the all_reduce's ms and MB, the peak
    memory. (b)
    Two processes sharing the card over gloo (a plumbing rate, not a
@@ -227,7 +234,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    L, K, V), the cell-sharded IRM sweep on the full relation. Checks the
    gathered z and a recount equal the all-reduced tables (the IRM's counts
    and suffstats a rebuild), the replicated leaves bit-identical on both
-   ranks; prints sweeps/s and the all_reduce's ms. (c) With 2 or more
+   ranks, no kernel launched but the dense sweeps' hdp_assign (a launch a
+   chunk of the rank's docs); prints sweeps/s and the all_reduce's ms. (c) With 2 or more
    cards, (b) over NCCL on min(count, 4) cards; otherwise a line says one
    card was found.
 
@@ -1234,12 +1242,13 @@ def phase_chains(headline: dict) -> dict:
 # ---------------------------------------------------------------------------
 def _all_kernels():
     from common_tpu_torch.ops import gaussian_assign as ga
+    from common_tpu_torch.ops import hdp_assign as ha
     from common_tpu_torch.ops import linear_assign as la
     from common_tpu_torch.ops import slice_update as su
     from common_tpu_torch.ops import suffstat as ss
 
     return (ga.fused_gaussian_assign, ga.fused_gaussian_assign_chains, la.fused_linear_assign,
-            ss.fused_scatter_stats, su.slice_update)
+            ss.fused_scatter_stats, su.slice_update, ha.hdp_assign)
 
 
 def _zero_launches() -> None:
@@ -2180,6 +2189,78 @@ def _hdp_float64_gap(s) -> float:
     return abs(a - b) / abs(b)
 
 
+def _aten_assign_chunk(words, mask, z_old, log_theta, log_phi_t, generator):
+    """The dense sweep's score-and-assign of one chunk of docs as the port ran
+    it before `csrc/hdp_assign.cu`: about fifteen ATen launches over a [docs,
+    L, K] float32 table (a yardstick of time only; its noise is the
+    generator's, not the kernel's)."""
+    import torch
+
+    from common_tpu_torch.rng import uniform_open
+
+    K = log_phi_t.shape[1]
+    logp = log_phi_t[words]
+    logp += log_theta[:, None, :]
+    u = uniform_open(logp.shape, generator, logp.dtype)
+    logp -= u.log_().neg_().log_()
+    z = torch.where(mask > 0, torch.argmax(logp, dim=-1).to(torch.int32), z_old)
+    dk = torch.zeros((words.shape[0], K + 1), dtype=torch.float32, device=words.device)
+    dk.scatter_add_(1, torch.where(mask > 0, z.long(), K), torch.ones(words.shape, device=words.device))
+    return z, dk
+
+
+def _hdp_assign_check(s, words, mask, what: str) -> dict:
+    """`ops.hdp_assign` on one chunk of CHUNK10 docs of state s at the cell's
+    shapes: one launch under set_sync_debug_mode("error"), z and the doc
+    counts equal to the plain version's bit for bit; the kernel's ms a chunk
+    back to back and on the card alone, with and without the noise's
+    pruning, the plain version's and the old ATen route's; the whole stage
+    (`_assign_docs`: 50 launches and the topic-word count) a sweep."""
+    import torch
+
+    from common_tpu_torch import rng
+    from common_tpu_torch.kernels.blocked import _device_seed
+    from common_tpu_torch.ops import hdp_assign as ha
+    from common_tpu_torch.topic import hdp
+
+    dev = words.device
+    g = rng(SEED + 308, dev).generator
+    phi, theta = hdp._draw_phi_theta(s, g)
+    log_phi_t = hdp._log_clipped(phi).t().contiguous()
+    log_theta = hdp._log_clipped(theta)
+    seed = _device_seed(g, dev)
+    a = 7 * CHUNK10  # a chunk past the first, so the noise's token index starts at a L
+    b = a + CHUNK10
+    args = (words[a:b], mask[a:b], s.z.view(D10, L10)[a:b], log_theta[a:b], log_phi_t, seed)
+    torch.cuda.synchronize()
+    before = ha.hdp_assign.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z, dk = ha.hdp_assign(*args, doc0=a)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(ha.hdp_assign.launches == before + 1, f"{what}: hdp_assign launched {ha.hdp_assign.launches - before}")
+    want_z, want_dk = ha.hdp_assign_plain(*args, doc0=a)
+    mismatch = int((z != want_z).sum())
+    require(mismatch == 0 and torch.equal(dk, want_dk),
+            f"{what}: hdp_assign differs from the plain version ({mismatch} tokens)")
+    require(torch.equal(dk.sum(-1), args[1].sum(-1)), f"{what}: a doc's counts do not sum to its tokens")
+    ms = cuda_ms(lambda: ha.hdp_assign(*args, doc0=a), 20)
+    device_ms = queued_ms(lambda: ha.hdp_assign(*args, doc0=a), 20)
+    plain_ms = cuda_ms(lambda: ha.hdp_assign_plain(*args, doc0=a), 3)
+    aten_ms = cuda_ms(lambda: _aten_assign_chunk(*args[:5], g), 5)
+    stage_ms = cuda_ms(lambda: hdp._assign_docs(s, words, mask, phi, theta, g, CHUNK10), 3)
+    chunks = D10 // CHUNK10
+    log(f"hdp_assign {what}, one chunk of {CHUNK10} docs x {L10} tokens (K={K10}): equal to the plain version "
+        f"bit for bit under set_sync_debug_mode('error'); kernel {ms:.4f} ms back to back, {device_ms:.4f} on "
+        f"the card alone ({chunks * device_ms:.3f} ms a sweep against the stage's once-counted 0.2712); plain "
+        f"{plain_ms:.3f} ms; the old ATen route {aten_ms:.3f} ms; _assign_docs a sweep ({chunks} launches + the "
+        f"topic-word count) {stage_ms:.3f} ms")
+    return {"mismatch": mismatch, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "aten_ms": aten_ms,
+            "stage_ms": stage_ms}
+
+
 def _hdp_chain(dev) -> dict:
     """(a): the record's chain, 18 dense sweeps + the CRT beta draw; the dense route through the runner
     once, against the same sweep bit for bit; then (b), the runner's flat
@@ -2210,6 +2291,7 @@ def _hdp_chain(dev) -> dict:
             scores.append(topic.score_joint(s))
         return s, torch.stack(scores)
 
+    assign_start = _hdp_assign_check(s0, words, mask, "at the random start")
     _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     s, scores = chain(s0, SWEEPS10)
@@ -2217,7 +2299,10 @@ def _hdp_chain(dev) -> dict:
     log(f"blocked_sweep_dense(doc_chunk={CHUNK10}) + sample_beta(max_count={L10}) + score_joint x "
         f"{SWEEPS10}: peak memory {peak / 2**30:.2f} GiB")
     launched = _launches()
-    require(not any(launched.values()), f"config 4 launched a hand-written kernel: {launched}")
+    want_launches = SWEEPS10 * (D10 // CHUNK10)
+    require(launched["hdp_assign"] == want_launches == sum(launched.values()),
+            f"config 4 launches {launched}: not hdp_assign {want_launches} times alone")
+    assign_end = _hdp_assign_check(s, words, mask, "after 18 sweeps")
 
     require_recount(s, data, "after 18 sweeps")
     require(torch.equal(s.doc_topic.sum(-1), mask.sum(-1)), "a doc_topic row does not sum to its doc's tokens")
@@ -2269,11 +2354,13 @@ def _hdp_chain(dev) -> dict:
     chain_rec = {"peak_gib": peak / 2**30, "score_joint": score,
                  "score_f64_rel_gap": gap, "largest_slot": slot, "active_topics": int(s.active_topics()),
                  "perplexity": ppl, "perplexity_init": ppl0, "score_trace": trace, "replay": replayed,
-                 "runner_dense_equal": True}
+                 "runner_dense_equal": True, "launches": launched, "hdp_assign_start": assign_start,
+                 "hdp_assign_end": assign_end}
 
     # (b) the runner's HDP family on the same corpus, from (a)'s end
     config = [("assign_blocked", {}), ("concentrations", {})]
     flat = data  # the dense corpus's flat view: the runner's sweep is the flat blocked_sweep
+    _zero_launches()
     t0 = time.perf_counter()
     run = runner(None, flat, s, config)
     build_s = time.perf_counter() - t0
@@ -2434,8 +2521,8 @@ def _online_lda(dev, words, mask) -> dict:
 
 def phase_hdp(dev=None) -> dict:
     """Config 4 (HDP-LDA) at the JAX record's recipe, its runner family, the
-    collapsed sampler with a resume, and online LDA. Runs none of the four
-    kernels, as the JAX package's topic/ runs none of the Pallas kernels."""
+    collapsed sampler with a resume, and online LDA. The dense sweep
+    launches `csrc/hdp_assign.cu`; the other routes run no kernel."""
     import torch
 
     dev = torch.device("cuda") if dev is None else dev
@@ -3306,7 +3393,9 @@ def _phase13_ws1(tmp: str) -> dict:
                                   mesh.data_group))
     rec["irm"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     launched = _launches()
-    require(not any(launched.values()), f"phase 13 (a) launched a hand-written kernel: {launched}")
+    dense_launches = (2 + 4 * SWEEPS13) * (D10 // CHUNK10)  # _in_turns: one untimed step a side, 4 turns
+    require(launched["hdp_assign"] == dense_launches == sum(launched.values()),
+            f"phase 13 (a) launches {launched}: not hdp_assign {dense_launches} times alone")
     for k in ("dense", "tokens", "irm"):
         log(f"(a) {k}: peak memory {rec[k]['peak_gib']:.2f} GiB")
     del views, local, s0, sweep, table, payload
@@ -3447,7 +3536,9 @@ def _phase13_rank(rank, world, store, out, backend):
                   "all_reduce_ms": _host_all_reduce_ms([table], mesh.data_group),
                   "all_reduce_mb": table.numel() * 4 / 1e6}
     launched = _launches()
-    require(not any(launched.values()), f"{what}: a sharded HDP or IRM sweep launched a kernel: {launched}")
+    dense_launches = BSWEEPS13 * -(-(D13B // world) // CHUNK10)  # the rank's doc chunks a dense sweep
+    require(launched["hdp_assign"] == dense_launches == sum(launched.values()),
+            f"{what}: launches {launched}: not the dense sweeps' hdp_assign {dense_launches} times alone")
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()

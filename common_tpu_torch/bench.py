@@ -46,7 +46,7 @@ from common_tpu_torch import models, scalar_functions
 from common_tpu_torch import state as st
 from common_tpu_torch import topic
 from common_tpu_torch.kernels import blocked, hmc, slice_, smc, splitmerge
-from common_tpu_torch.ops import _build, gaussian_assign, linear_assign, suffstat
+from common_tpu_torch.ops import _build, gaussian_assign, hdp_assign, linear_assign, suffstat
 from common_tpu_torch.parallel import stack_states, unstack_state
 from common_tpu_torch.utils import diagnostics
 
@@ -215,6 +215,7 @@ _KERNELS = {
     "gaussian_assign_chains": gaussian_assign.fused_gaussian_assign_chains,
     "linear_assign": linear_assign.fused_linear_assign,
     "scatter_stats": suffstat.fused_scatter_stats,
+    "hdp_assign": hdp_assign.hdp_assign,
 }
 
 

@@ -65,4 +65,14 @@ __device__ __forceinline__ uint4 slice_words(uint32_t seed, uint32_t group) {
   return philox4x32_10(make_uint4(group, 0u, 0u, 2u), make_uint2(seed, 0x5EEDu));
 }
 
+// The four words of one call with counter (token, group, token_hi, 3): the
+// dense HDP assignment's noise for topics 4 group .. 4 group + 3 of one
+// token, word j (x, y, z, w) for topic 4 group + j. `token` is the low 32
+// bits of the global token index d L + l and `token_hi` its high bits (0 for
+// any corpus under 2^32 tokens). The last word, 3, keeps the stream apart
+// from the other kernels' (0, 1 and 2).
+__device__ __forceinline__ uint4 hdp_words(uint32_t seed, uint32_t token, uint32_t group, uint32_t token_hi) {
+  return philox4x32_10(make_uint4(token, group, token_hi, 3u), make_uint2(seed, 0x5EEDu));
+}
+
 }  // namespace philox

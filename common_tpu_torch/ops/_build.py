@@ -69,6 +69,10 @@ def _declare(lib):
     cf = ctypes.c_float
     lib.slice_update_launch.argtypes = [vp] * 8 + [ci] * 4 + [cf] * 4 + [ci] * 3 + [vp]
     lib.slice_update_launch.restype = ci
+    lib.hdp_assign_launch.argtypes = [vp] * 8 + [ci] * 4 + [ctypes.c_longlong, ci, vp]
+    lib.hdp_assign_launch.restype = ci
+    lib.hdp_assign_max_topics.argtypes = []
+    lib.hdp_assign_max_topics.restype = ci
     return lib
 
 

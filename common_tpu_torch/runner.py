@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import json
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -191,18 +191,69 @@ def _host_copy(assignments: torch.Tensor, state, stream):
     return assignments.cpu().numpy(), None
 
 
+_PLANES = (8, 4, 2, 1)  # bit-plane widths, each a divisor of 8
+
+
+class PackedZ(NamedTuple):
+    """A chunk's HDP trace on the host: `bits` bits a token (`_pack_bits`)."""
+
+    data: np.ndarray  # [sweeps, ceil(tokens / 8) * bits] uint8
+    bits: int
+    tokens: int
+
+    def unpack(self) -> np.ndarray:
+        """[sweeps, tokens] int32."""
+        S, n8 = self.data.shape[0], -(-self.tokens // 8) * 8
+        out = np.zeros((S, n8), np.int32)
+        start = shift = 0
+        for w in _PLANES:
+            if self.bits & w:
+                per = 8 // w
+                plane = self.data[:, start:start + n8 // per].astype(np.int32)
+                vals = np.stack([(plane >> (w * i)) & ((1 << w) - 1) for i in range(per)], axis=-1)
+                out |= vals.reshape(S, n8) << shift
+                start, shift = start + n8 // per, shift + w
+        return out[:, :self.tokens]
+
+
+def _pack_bits(z: torch.Tensor, bits: int) -> torch.Tensor:
+    """[S, T] ids below 2^bits (bits <= 8) as uint8 [S, ceil(T / 8) * bits],
+    on z's device: one bit plane for each binary digit of bits (8, 4, 2 or 1
+    bits wide, low bits first), each packing 8 / width tokens a byte. Only
+    byte-wide operations, so the packing costs a few passes over a byte a
+    token."""
+    S, T = z.shape
+    z = z.to(torch.uint8)
+    if T % 8:
+        z = torch.nn.functional.pad(z, (0, -T % 8))
+    planes, shift = [], 0
+    for w in _PLANES:
+        if bits & w:
+            part = ((z >> shift) & ((1 << w) - 1)).view(S, -1, 8 // w)
+            byte = part[..., 0]
+            for i in range(1, 8 // w):
+                byte = byte | (part[..., i] << (w * i))
+            planes.append(byte)
+            shift += w
+    return torch.cat(planes, dim=1)
+
+
 def _hdp_host_z(z: torch.Tensor, state, stream):
-    """A chunk's z on the host: one byte a token where the topics fit
-    (K <= 256), into pinned memory, on a stream of its own that waits for
-    the chunk's sweeps and overlaps the next chunk. At config 4's 1M docs x
-    50 tokens a chunk of 4 sweeps is 200 MB (3.7 ms on an H100), in place of
-    800 MB of int32 into pageable memory (0.44 s of a 0.88 s step, the card
-    waiting). `stream` is the runner's copy stream (None off the card).
-    Returns the array and the event after which it is whole."""
+    """A chunk's z on the host: where the topics fit in a byte (K <= 256),
+    ceil(log2 K) bits a token (`PackedZ`, packed on the device), into pinned
+    memory, on a stream of its own that waits for the chunk's sweeps and
+    overlaps the next chunk. At config 4's 1M docs x 50 tokens and K = 32 a
+    sweep keeps 31.25 MB, so a run of a few thousand sweeps fits the host
+    (one byte a token in pinned blocks, which round up to a power of two,
+    kept 64 MB a sweep). `stream` is the runner's copy stream (None off the
+    card). Returns the host copy and the event after which it is whole."""
+    host = lambda a: a  # noqa: E731
     if state.n_topics <= 256:
-        z = z.to(torch.uint8)
+        bits, tokens = max(1, (state.n_topics - 1).bit_length()), z.shape[1]
+        host = lambda a: PackedZ(a, bits, tokens)  # noqa: E731
+        z = _pack_bits(z, bits)
     if stream is None:
-        return z.cpu().numpy(), None
+        return host(z.cpu().numpy()), None
     stream.wait_stream(torch.cuda.current_stream(z.device))
     out = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
     with torch.cuda.stream(stream):
@@ -210,7 +261,7 @@ def _hdp_host_z(z: torch.Tensor, state, stream):
         done = torch.cuda.Event()
         done.record(stream)
     z.record_stream(stream)  # the source outlives the copy
-    return out.numpy(), done
+    return host(out.numpy()), done
 
 
 def _hdp_saturated(st) -> torch.Tensor:
@@ -412,9 +463,8 @@ class runner:
         for copied in self._copies:
             copied.synchronize()
         self._copies.clear()
-        parts = self._assignment_trace
-        # the HDP family keeps one byte a token; the trace reads as int32
-        return np.concatenate(parts, dtype=np.int32 if parts[0].dtype == np.uint8 else None)
+        # the HDP family keeps a few bits a token; the trace reads as int32
+        return np.concatenate([p.unpack() if isinstance(p, PackedZ) else p for p in self._assignment_trace])
 
     @property
     def score_trace(self):

@@ -28,7 +28,10 @@ slot. Samplers:
   - `blocked_sweep` and `blocked_sweep_dense`: draw phi | z, theta | z,
     then reassign every token at once (Gumbel-argmax over log theta +
     log phi) and rebuild the counts; the dense form takes a doc-major
-    [D, L] corpus and works through it `doc_chunk` docs at a time.
+    [D, L] corpus and works through it `doc_chunk` docs at a time, each
+    chunk one call of `ops.hdp_assign` (on the card one launch of
+    `csrc/hdp_assign.cu`, its noise Philox4x32-10 keyed on a seed drawn
+    once a sweep; on the CPU its plain version).
 
 `sample_beta` resamples the global weights from Chinese-restaurant-table
 counts m_dk = sum_i Bernoulli(a/(a+i)), one [D, K] batch a value of i;
@@ -53,7 +56,8 @@ bit. torch has no global sharded array: each rank holds its shard.
 Under `utils.profiling.recording()`: `blocked_sweep_dense` is the span
 `hdp.sweep`, its phi and theta draws `hdp.draw`, the docs' score, noise,
 argmax and doc counts `hdp.assign` (counter `hdp.doc_chunks`, a chunk of
-docs each) and the topic-word count `hdp.topic_word`; `crt_sample` is
+docs each; on the card also `hdp.fused_assign`, a launch of the kernel
+each) and the topic-word count `hdp.topic_word`; `crt_sample` is
 `hdp.crt` (counter `hdp.crt_batches`, a Bernoulli batch each), the
 Dirichlet draw of beta `hdp.beta`, and `_max_count`'s read of the largest
 doc-topic count `read.hdp.max_count`.
@@ -69,6 +73,8 @@ import numpy as np
 import torch
 
 from common_tpu_torch import validator
+from common_tpu_torch.kernels.blocked import _device_seed
+from common_tpu_torch.ops.hdp_assign import hdp_assign
 from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.rng import beta as beta_draw
 from common_tpu_torch.rng import standard_gamma, uniform_open
@@ -473,10 +479,12 @@ def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator
 
     words/mask: [D, L] (docs padded to equal length; the state must have
     been initialized from `dense_token_data(words, mask)` so `state.z` is
-    row-major-flat). The same sampler, but theta is broadcast per doc
-    instead of gathered per token, and doc_topic is a scatter-add over each
-    doc's L tokens. Peak memory is [doc_chunk, L, K]; doc_chunk=None takes
-    about 2^26 elements (256 MB of float32) a table, the JAX default.
+    row-major-flat). The same sampler, but theta is read per doc instead of
+    gathered per token, and doc_topic is counted over each doc's L tokens.
+    doc_chunk sets the docs a call of `ops.hdp_assign` takes (doc_chunk=None:
+    about 2^26 / (L K) docs, the JAX default); the draws do not depend on
+    it. On the card no [doc_chunk, L, K] table is made; on the CPU the plain
+    version makes one a chunk.
     """
     with profiling.span("hdp.sweep"):
         phi, theta = _draw_phi_theta(state, generator)
@@ -487,31 +495,31 @@ def blocked_sweep_dense(state: HDPState, words, mask, generator: torch.Generator
 def _assign_docs(state: HDPState, words, mask, phi, theta, generator: torch.Generator,
                  doc_chunk: Optional[int]):
     """The docs' new z [D * L] given phi and theta [D, K], `doc_chunk` docs a
-    table, with their doc_topic [D, K] and topic_word [K, V] counts."""
+    call of `ops.hdp_assign` (on the card one kernel launch, which never
+    writes the [doc_chunk, L, K] score table), with their doc_topic [D, K]
+    and topic_word [K, V] counts. The noise's seed is drawn once a call, so
+    the chunking changes no draw."""
     D, L = words.shape
     K, V = state.n_topics, state.vocab_size
     log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K], a word's scores one row
     log_theta = _log_clipped(theta)                 # [D, K]
     step = min(D, max(1024, (1 << 26) // max(L * K, 1)) if doc_chunk is None else int(doc_chunk))
-    valid = mask > 0
+    seed = _device_seed(generator, words.device)
     z_old = state.z.view(D, L)
     z = torch.empty_like(z_old)
-    dk = torch.zeros((D, K + 1), dtype=torch.float32, device=z.device)  # column K: the masked tokens
-    ones = torch.ones((min(step, D), L), dtype=torch.float32, device=z.device)
-    profiling.count("hdp.doc_chunks", -(-D // step))
+    dk = torch.empty((D, K), dtype=torch.float32, device=z.device)
+    chunks = -(-D // step)
+    profiling.count("hdp.doc_chunks", chunks)
+    if words.is_cuda:
+        profiling.count("hdp.fused_assign", chunks)
     with profiling.span("hdp.assign"):
         for a in range(0, D, step):
             b = min(D, a + step)
-            logp = log_phi_t[words[a:b]]                 # [dc, L, K]
-            logp += log_theta[a:b, None, :]
-            torch.where(valid[a:b], _perturbed_argmax(logp, generator), z_old[a:b], out=z[a:b])
-            del logp
-            zi = torch.where(valid[a:b], z[a:b].long(), K)
-            dk[a:b].scatter_add_(1, zi, ones[:b - a])
-        dk = dk[:, :K].contiguous()
+            hdp_assign(words[a:b], mask[a:b], z_old[a:b], log_theta[a:b], log_phi_t, seed, doc0=a,
+                       out=(z[a:b], dk[a:b]))
     z = z.reshape(-1)
     with profiling.span("hdp.topic_word"):
-        flat_kw = torch.where(valid.reshape(-1), z.long() * V + words.reshape(-1), K * V)
+        flat_kw = torch.where(mask.reshape(-1) > 0, z.long() * V + words.reshape(-1), K * V)
         return z, dk, _segment_count(flat_kw, K * V).view(K, V)
 
 

@@ -196,7 +196,7 @@ def test_tier_keys_match_bench(func):
     out = TINY[func]()
     assert set(out) == _port_keys(func)
     assert out["launches"] == {"gaussian_assign": 0, "gaussian_assign_chains": 0, "linear_assign": 0,
-                               "scatter_stats": 0}
+                               "scatter_stats": 0, "hdp_assign": 0}
 
 
 def _bench_dicts(func):

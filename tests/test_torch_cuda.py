@@ -423,8 +423,9 @@ BENCH_TIERS = {
                                                    device=dev),
                      {"scatter_stats": 2 * 4 * 3}),
     "run_config3_tier": (lambda b, dev: b.run_config3_tier(0, n=512, k_max=8, sweeps=1, heldout=32, device=dev), {}),
+    # 4 chunks a sweep, 2 sweeps a run: the warm-up, the timed run and HDP_MORE (5) more
     "run_hdp_tier": (lambda b, dev: b.run_hdp_tier(256, 10, 6, 40, 2, 0, doc_chunk=64, heldout_frac=0.1,
-                                                   device=dev), {}),
+                                                   device=dev), {"hdp_assign": 4 * 2 * 7}),
 }
 
 
@@ -435,12 +436,13 @@ def test_cuda_bench_tier_launches_its_kernels(cuda_device, tier):
     sweep kernels 1 and 2 a sweep (warm-up and timed run), path A kernel 4 a
     sweep (at these widths its restat is the wide product, not kernel 2),
     config 2 kernel 3 an iteration of its fused variant, config 5 kernel 2
-    three times a block, configs 3 and 4 none."""
+    three times a block, config 4 the HDP kernel a chunk of docs, config 3
+    none."""
     from common_tpu_torch import bench
 
     run, want = BENCH_TIERS[tier]
     out = run(bench, cuda_device)
-    names = ("gaussian_assign", "gaussian_assign_chains", "linear_assign", "scatter_stats")
+    names = ("gaussian_assign", "gaussian_assign_chains", "linear_assign", "scatter_stats", "hdp_assign")
     assert out["launches"] == {name: want.get(name, 0) for name in names}
 
 
@@ -653,9 +655,9 @@ def test_cuda_slice_update_kernel_matches_plain_over_an_iteration(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_hdp_runner_trace_is_each_sweeps_z(cuda_device):
-    """The HDP runner copies each chunk's z on a stream of its own, one byte a
-    token into pinned memory: the trace read back after runs of 3 and 2
-    sweeps is each sweep's z, as the same steps give it on the card."""
+    """The HDP runner copies each chunk's z on a stream of its own, 4 bits a
+    token (K = 12) into pinned memory: the trace read back after runs of 3
+    and 2 sweeps is each sweep's z, as the same steps give it on the card."""
     from common_tpu_torch import rng, topic
     from common_tpu_torch.runner import HDP_FAMILY, make_step, runner
 
@@ -674,7 +676,8 @@ def test_cuda_hdp_runner_trace_is_each_sweeps_z(cuda_device):
     gen = rng(3, cuda_device).generator
     run.run(gen, 3)
     run.run(gen, 2)
-    assert [a.dtype for a in run._assignment_trace] == [np.uint8, np.uint8]
+    assert [(p.data.dtype, p.data.shape, p.bits) for p in run._assignment_trace] == [
+        (np.uint8, (3, D * L // 2), 4), (np.uint8, (2, D * L // 2), 4)]
     trace = run.assignment_trace
     assert trace.dtype == np.int32 and np.array_equal(trace, np.stack(zs))
     assert torch.equal(run.get_latent().z, x.z)

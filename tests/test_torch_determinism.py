@@ -52,7 +52,7 @@ ALLOWED = {
     # HDP count tables: ones into float32 slots; a slot holds at most a topic's
     # tokens (phase 10 of chip_smoke.py requires its largest below 2^24)
     ("topic/hdp.py", "_segment_count", "index_add_"): (1, EXACT),
-    ("topic/hdp.py", "_assign_docs", "scatter_add_"): (1, EXACT),
+    ("ops/hdp_assign.py", "hdp_assign_plain", "scatter_add_"): (1, EXACT),
     # one row's contribution into each of M distinct slots
     ("likelihoods/base.py", "scatter_fold_", "index_add_"): (1, DISTINCT),
 }

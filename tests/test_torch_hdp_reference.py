@@ -31,7 +31,7 @@ from benchmark.reference.precision import REFERENCE
 from common_tpu import testutil
 from common_tpu_torch import rng, topic
 from common_tpu_torch.data import variadic_dataview
-from common_tpu_torch.runner import HDP_FAMILY, _hdp_default_kw, make_step, runner
+from common_tpu_torch.runner import HDP_FAMILY, PackedZ, _hdp_default_kw, _pack_bits, make_step, runner
 from common_tpu_torch.topic import hdp
 
 D, L, V, K = 64, 12, 40, 6
@@ -146,9 +146,10 @@ def test_runner_dense_step_equals_the_sweep_and_beta(doc_chunk):
 
 
 def test_the_runner_keeps_a_byte_a_token_of_the_hdp_trace():
-    """The HDP family's host copy of z holds one byte a token where the
-    topics fit (K <= 256) and reads back as int32, each sweep's z in turn
-    over runs of 2 and 3 sweeps; past 256 topics it keeps int32."""
+    """The HDP family's host copy of z holds at most a byte a token where the
+    topics fit (K <= 256): ceil(log2 K) bits, 3 here, packed in bit planes;
+    it reads back as int32, each sweep's z in turn over runs of 2 and 3
+    sweeps; past 256 topics it keeps int32."""
     _, _, data = _corpus(21)
     s = topic.initialize(data, K, V, _gen(22), n_docs=D)
     config = [("assign_blocked_dense", {"doc_chunk": 16}), ("beta", {})]
@@ -159,13 +160,28 @@ def test_the_runner_keeps_a_byte_a_token_of_the_hdp_trace():
     run, g = runner(None, data, s, config), _gen(23)
     run.run(g, 2)
     run.run(g, 3)
-    assert [a.dtype for a in run._assignment_trace] == [np.uint8, np.uint8]
+    assert [(p.data.dtype, p.data.shape, p.bits) for p in run._assignment_trace] == [
+        (np.uint8, (2, D * L // 8 * 3), 3), (np.uint8, (3, D * L // 8 * 3), 3)]
     trace = run.assignment_trace
     assert trace.dtype == np.int32 and np.array_equal(trace, np.stack(zs))
     wide = topic.initialize(data, 300, V, _gen(24), n_docs=D)
     host, copied = HDP_FAMILY["host_assignments"](wide.z[None], wide, None)
     assert copied is None  # on the CPU the copy is done when it returns
     assert host.dtype == np.int32 and np.array_equal(host[0], wide.z.numpy())
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_the_trace_packing_round_trips(bits):
+    """`_pack_bits` keeps ceil(T / 8) * bits bytes a sweep of any ids below
+    2^bits, T not a multiple of 8 included, and `PackedZ` reads them back."""
+    g = torch.Generator().manual_seed(bits)
+    for T in (1, 13, 64):
+        z = torch.randint(0, 2 ** bits, (3, T), generator=g, dtype=torch.int32)
+        z[0, 0] = 2 ** bits - 1
+        packed = _pack_bits(z, bits)
+        assert packed.dtype == torch.uint8 and packed.shape == (3, -(-T // 8) * bits)
+        back = PackedZ(packed.numpy(), bits, T).unpack()
+        assert back.dtype == np.int32 and np.array_equal(back, z.numpy())
 
 
 def _ragged():
