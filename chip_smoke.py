@@ -2219,8 +2219,8 @@ def _hdp_assign_check(s, words, mask, what: str) -> dict:
     import torch
 
     from common_tpu_torch import rng
-    from common_tpu_torch.kernels.blocked import _device_seed
     from common_tpu_torch.ops import hdp_assign as ha
+    from common_tpu_torch.rng import device_seed
     from common_tpu_torch.topic import hdp
 
     dev = words.device
@@ -2228,7 +2228,7 @@ def _hdp_assign_check(s, words, mask, what: str) -> dict:
     phi, theta = hdp._draw_phi_theta(s, g)
     log_phi_t = hdp._log_clipped(phi).t().contiguous()
     log_theta = hdp._log_clipped(theta)
-    seed = _device_seed(g, dev)
+    seed = device_seed(g, dev)
     a = 7 * CHUNK10  # a chunk past the first, so the noise's token index starts at a L
     b = a + CHUNK10
     args = (words[a:b], mask[a:b], s.z.view(D10, L10)[a:b], log_theta[a:b], log_phi_t, seed)
@@ -2914,6 +2914,7 @@ def _sharded_sweep_check(mesh, world: int, headline, what: str) -> dict:
     from common_tpu_torch.kernels import blocked
     from common_tpu_torch.parallel import mesh as mesh_mod
     from common_tpu_torch.parallel import sharded, stack_states, unstack_state
+    from common_tpu_torch.rng import device_seed
 
     (x, mask), = headline["data"]
     n = (N // world) * mesh.data  # every rank holds N // world rows
@@ -2932,7 +2933,7 @@ def _sharded_sweep_check(mesh, world: int, headline, what: str) -> dict:
     probe = torch.Generator(device=mesh.device)
     probe.set_state(gens[0].get_state())
     mu, binv, base, _ = blocked.fused_assign_inputs(unstack_state(states, 0), local, probe)
-    seed = blocked._device_seed(probe, mesh.device)
+    seed = device_seed(probe, mesh.device)
     _zero_launches()
     states = sweep(states, local, gens)
     launched = _launches()

@@ -37,7 +37,7 @@ from common_tpu_torch.ops.gaussian_assign import (
 from common_tpu_torch.ops.linear_assign import fused_linear_assign
 from common_tpu_torch.ops.suffstat import fused_scatter_stats
 from common_tpu_torch.parallel.chains import vmap_sweep
-from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, standard_gamma
+from common_tpu_torch.rng import beta, device_seed, gumbel, gumbel_argmax, standard_gamma
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.utils import profiling
 
@@ -173,12 +173,6 @@ def linear_assign_inputs(state: MixtureState, data, generator):
     return (lp - lq).contiguous(), base.contiguous(), logw
 
 
-def _device_seed(generator, device) -> torch.Tensor:
-    """A per-sweep kernel seed: one int32 drawn on the device, never read by the host."""
-    return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
-                         dtype=torch.int32)
-
-
 def _prior_fallback(z, logw, mask, generator):
     """Fully-masked rows carry no likelihood: assign them from the weights alone."""
     n, K = z.shape[0], logw.shape[-1]
@@ -274,7 +268,7 @@ def sweep_fused(state: MixtureState, data, generator, fused_restat: bool = True)
     K = state.k_max
     m = mask.to(x.dtype)
     with profiling.span("sweep.assign"):
-        z = fused_gaussian_assign(x, mu, binv, base, _device_seed(generator, x.device))
+        z = fused_gaussian_assign(x, mu, binv, base, device_seed(generator, x.device))
         z = _prior_fallback(z, logw, m, generator)
     with profiling.span("sweep.restat"):
         if not fused_restat:
@@ -298,7 +292,7 @@ def _sweep_fused_bbv(state: MixtureState, data, generator) -> MixtureState:
     K = state.k_max
     m = mask.to(torch.float32)
     with profiling.span("sweep.assign"):
-        z = fused_linear_assign(xf, W, base, _device_seed(generator, x.device))
+        z = fused_linear_assign(xf, W, base, device_seed(generator, x.device))
         z = _prior_fallback(z, logw, m, generator)
     with profiling.span("sweep.restat"):
         _, onehot = _onehot(z, m, K)
@@ -436,7 +430,7 @@ def sweep_chains(states: MixtureState, data, generator, d_max_xx: int = 64,
         with profiling.span("sweep.inputs"):
             mu, minv, base, logw = chain_assign_inputs(states, data, generator)
         with profiling.span("sweep.assign"):
-            z = fused_gaussian_assign_chains(x, mu, minv, base, _device_seed(generator, x.device), C).T
+            z = fused_gaussian_assign_chains(x, mu, minv, base, device_seed(generator, x.device), C).T
             if not assume_dense_mask:
                 g = gumbel((N, C, K), generator, logw.dtype)
                 z_prior = torch.argmax(logw[None] + g, dim=-1).to(torch.int32)

@@ -10,8 +10,8 @@ continuous priors. The targets are the package's own scores
 The JAX package runs each loop as a bounded `lax.while_loop`. Here an
 update takes one of two routes, chosen by its target:
 
-- a `HyperTarget` (`hp` builds one for a bbv Beta hyper or the CRP
-  concentration under a `log_exponential` prior): one launch of
+- a `HyperTarget` (`hp` asks the likelihood's `hyper_target` for one, and
+  `state.crp_hyper_target` for the CRP concentration): one launch of
   `ops/slice_update.py` runs the whole update on the card against the
   coordinate's own float64 term, and the host reads nothing (on the CPU
   its plain version runs, testing on the host);
@@ -44,10 +44,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from common_tpu_torch import state as state_mod
-from common_tpu_torch.kernels import blocked
-from common_tpu_torch.likelihoods.bbv import BBV
-from common_tpu_torch.ops.slice_update import KIND_ALPHA, KIND_BETA, KIND_CRP, HyperTarget, slice_update
-from common_tpu_torch.rng import uniform_open
+from common_tpu_torch.ops.slice_update import HyperTarget, slice_update
+from common_tpu_torch.rng import device_seed, uniform_open
 from common_tpu_torch.state import MixtureState
 from common_tpu_torch.utils import profiling
 
@@ -75,7 +73,7 @@ def slice_sample(generator: torch.Generator, x0, logf: Callable, w: float = 1.0,
         if isinstance(logf, HyperTarget):
             profiling.count("slice.fused_updates")
             level = uniform_open(shape, generator)
-            return slice_update(x0, level, blocked._device_seed(generator, dev), logf, w, lower, upper,
+            return slice_update(x0, level, device_seed(generator, dev), logf, w, lower, upper,
                                 _MAX_STEPOUT, _MAX_SHRINK)
         profiling.count("slice.evals")
         y = logf(x0) + torch.log(uniform_open(shape, generator))  # logf(x0) - Exp(1)
@@ -157,9 +155,11 @@ def hp(state: MixtureState, data, generator: torch.Generator,
     make empty-slot prior draws so extreme that the truncated sampler
     collapses to one cluster.
 
-    A bbv feature's float32 Beta hypers and the CRP concentration, each
-    under a `scalar_functions.log_exponential` prior, are updated on the
-    card (`HyperTarget`); every other hyper takes the host loop.
+    A hyper vector whose likelihood's `hyper_target` gives a `HyperTarget`
+    (bbv's float32 Beta hypers under a `scalar_functions.log_exponential`
+    prior), and the CRP concentration where `state.crp_hyper_target` gives
+    one, are updated on the card, one target a vector; every other hyper
+    takes the host loop.
     """
     del data  # scored from the suffstats alone
     active = state.counts > 0
@@ -179,10 +179,8 @@ def hp(state: MixtureState, data, generator: torch.Generator,
             lo, hi = spec.get("bounds", (-math.inf, math.inf))
             width = spec.get("w", 1.0)
             x0 = hyper[pname]
-            rate = getattr(prior_fn, "exponential_rate", None)
-            if isinstance(lik, BBV) and rate is not None and x0.dtype == torch.float32:
-                kind, other = (KIND_ALPHA, hyper["beta"]) if pname == "alpha" else (KIND_BETA, hyper["alpha"])
-                target = HyperTarget(kind, rate, state.counts, 0, other, stats["n"], stats["heads"])
+            target = lik.hyper_target(pname, hyper, stats, state.counts, prior_fn)
+            if target is not None:
                 hyper[pname] = torch.stack([
                     slice_sample(generator, x0[c], target.column(c), w=width, lower=lo, upper=hi)
                     for c in range(x0.shape[0])])
@@ -209,10 +207,8 @@ def hp(state: MixtureState, data, generator: torch.Generator,
         prior_fn = cluster["prior"]
         lo, hi = cluster.get("bounds", (1e-6, math.inf))
         alpha = state.cluster_hp["alpha"]
-        rate = getattr(prior_fn, "exponential_rate", None)
-        if rate is not None and alpha.dtype == torch.float32:
-            logf_alpha = HyperTarget(KIND_CRP, rate, state.counts)
-        else:
+        logf_alpha = state_mod.crp_hyper_target(state, prior_fn)
+        if logf_alpha is None:
             def logf_alpha(a):
                 s = dataclasses.replace(state, cluster_hp={"alpha": a})
                 return prior_fn(a) + state_mod.score_assignment(s)

@@ -264,6 +264,15 @@ class Likelihood:
             out[k] = (r.to(flat.dtype).T @ flat).reshape(r.shape[1], *t.shape[1:])
         return out
 
+    # --- slice sampling of the hypers ------------------------------------
+    def hyper_target(self, pname: str, hyper, stats, counts, prior):
+        """The `ops.slice_update.HyperTarget` of hyper `pname` [d] under
+        `prior`, at column 0 (`kernels/slice_.py` `hp` updates column c on
+        the card through `target.column(c)`), or None: `hp` then scores
+        the hyper by `marginal_loglik` in its host loop. None here."""
+        del pname, hyper, stats, counts, prior
+        return None
+
     def refresh_latents(self, generator: torch.Generator, hyper, stats, refresh_mask):
         """Redraw any explicit latents inside `stats` where refresh_mask is set.
 

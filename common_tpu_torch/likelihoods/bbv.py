@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from common_tpu_torch.likelihoods import base
+from common_tpu_torch.ops.slice_update import KIND_ALPHA, KIND_BETA, HyperTarget, exponential_rate
 from common_tpu_torch.rng import beta_open
 
 
@@ -126,6 +127,15 @@ class BBV(base.Likelihood):
 
     def log_h(self, hyper, x, mask):
         return torch.zeros(x.shape[:-1], dtype=hyper["alpha"].dtype, device=x.device)
+
+    def hyper_target(self, pname, hyper, stats, counts, prior):
+        """alpha or beta under an Exp prior: a column's Beta-Bernoulli term,
+        the other hyper fixed."""
+        rate = exponential_rate(prior, hyper[pname])
+        if rate is None:
+            return None
+        kind, other = (KIND_ALPHA, hyper["beta"]) if pname == "alpha" else (KIND_BETA, hyper["alpha"])
+        return HyperTarget(kind, rate, counts, 0, other, stats["n"], stats["heads"])
 
     def marginal_loglik(self, hyper, stats):
         a, b = hyper["alpha"], hyper["beta"]

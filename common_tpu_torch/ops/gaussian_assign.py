@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from common_tpu_torch.ops import _build
+from common_tpu_torch.ops.philox import GAUSSIAN_STREAM, gumbel_from_bits, philox4x32_10, philox_key
 from common_tpu_torch.rng import gumbel_argmax, gumbel_argmax_rows
 
 
@@ -77,68 +78,19 @@ def gaussian_assign_chains_plain(X, mu, binv, base, n_chains: int,
     return gumbel_argmax(logp, generator).T.contiguous().to(torch.int32)
 
 
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo32(m: int, x: torch.Tensor):
-    """(hi, lo) 32-bit halves of m * x for int64 tensors of uint32 values.
-
-    x is split into 16-bit halves so that no int64 product overflows.
-    """
-    t = m * (x & 0xFFFF)
-    u = m * (x >> 16)
-    s = t + ((u & 0xFFFF) << 16)
-    return (u >> 16) + (s >> 32), s & _MASK32
-
-
-def philox4x32_10(ctr, key):
-    """Philox4x32-10 (`csrc/philox.cuh`) in int64 tensor ops.
-
-    ctr: four int64 tensors of uint32 values; key: two such tensors or ints.
-    Returns the four output words.
-    """
-    c0, c1, c2, c3 = ctr
-    k0, k1 = key
-    for _ in range(10):
-        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _MASK32
-        k1 = (k1 + _PHILOX_W[1]) & _MASK32
-    return c0, c1, c2, c3
-
-
-def philox_key(seed: torch.Tensor):
-    """The kernels' Philox key (seed, 0x5EED), the seed as an int64 tensor."""
-    return seed.reshape(()).to(torch.int64) & _MASK32, 0x5EED
-
-
-def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Float32 uniforms in (0, 1) from 32-bit words (`csrc/philox.cuh`
-    uniform_open): the top 24 bits, floored at 1e-7."""
-    return ((bits >> 8).to(torch.float32) * (1.0 / 16777216.0)).clamp_min(1e-7)
-
-
-def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Standard Gumbel draws from 32-bit words (`csrc/philox.cuh` gumbel_of_bits):
-    -log(-log u) of `uniform_from_bits`."""
-    return -torch.log(-torch.log(uniform_from_bits(bits)))
-
-
 def philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int, chain: int = 0) -> torch.Tensor:
     """[len(rows), k] float32: the Gumbel noise the Gaussian kernels add, in plain ops.
 
     Philox4x32-10 keyed on (seed, 0x5EED) with counter (row, cluster,
-    chain, 0), the uniform from the top 24 bits of the first word, floored
-    at 1e-7. `rows` are global row indices, so any slice of X can be checked
-    draw for draw against a kernel; `cluster` counts from 0 within `chain`.
+    chain, GAUSSIAN_STREAM) (`csrc/philox.cuh` gumbel), the uniform from
+    the top 24 bits of the first word, floored at 1e-7. `rows` are global
+    row indices, so any slice of X can be checked draw for draw against a
+    kernel; `cluster` counts from 0 within `chain`.
     """
     r = rows.to(torch.int64)[:, None].expand(-1, k)
     c = torch.arange(k, device=rows.device, dtype=torch.int64)[None, :].expand_as(r)
     zero = torch.zeros_like(r)
-    return gumbel_from_bits(philox4x32_10((r, c, zero + chain, zero), philox_key(seed))[0])
+    return gumbel_from_bits(philox4x32_10((r, c, zero + chain, zero + GAUSSIAN_STREAM), philox_key(seed))[0])
 
 
 def philox_scores(X, mu, binv, base, seed: torch.Tensor, row0: int = 0,

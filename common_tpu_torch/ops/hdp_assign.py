@@ -12,11 +12,11 @@ package runs the stage as plain `jnp` (`common_tpu/topic/hdp.py`
 `blocked_sweep_dense`).
 
 The noise is Philox4x32-10 keyed on (seed, 0x5EED): one call a token and
-group of four topics g, counter (token, g, token >> 32, STREAM), its word j
-(x, y, z, w) the uniform of topic 4g + j (top 24 bits, floored at 1e-7) and
-the Gumbel draw -log(-log u). `token` is the corpus's token index
-(doc0 + d) L + l, so the draws depend on neither the chunking nor the launch
-geometry. `hdp_assign_plain` repeats the kernel's arithmetic in plain ops
+group of four topics g, counter (token, g, token >> 32, HDP_STREAM)
+(`csrc/philox.cuh` hdp_words), its word j (x, y, z, w) the uniform of topic
+4g + j (top 24 bits, floored at 1e-7) and the Gumbel draw -log(-log u).
+`token` is the corpus's token index (doc0 + d) L + l, so the draws depend
+on neither the chunking nor the launch geometry. `hdp_assign_plain` repeats the kernel's arithmetic in plain ops
 with the same words: (log theta + log phi) + Gumbel in float32, the argmax's
 first maximum; it is the CPU route.
 
@@ -37,11 +37,8 @@ from typing import Optional, Tuple
 import torch
 
 from common_tpu_torch.ops import _build
-from common_tpu_torch.ops.gaussian_assign import _MASK32, gumbel_from_bits, philox4x32_10, philox_key
+from common_tpu_torch.ops.philox import HDP_STREAM, MASK32, gumbel_from_bits, philox4x32_10, philox_key
 
-# The last word of the noise's Philox counter; the Gaussian kernels' is 0,
-# the linear kernel's 1, the slice kernel's 2.
-STREAM = 3
 # The largest K the kernel takes: one doc's log theta row and integer
 # counters in a block's 48 KB of shared memory (`hdp_assign_max_topics`).
 MAX_TOPICS = 6143
@@ -55,7 +52,7 @@ def hdp_philox_gumbel(seed: torch.Tensor, tokens: torch.Tensor, k: int) -> torch
     groups = -(-k // 4)
     t = tokens.to(torch.int64)[:, None].expand(-1, groups)
     g = torch.arange(groups, device=tokens.device, dtype=torch.int64)[None, :].expand_as(t)
-    words = philox4x32_10((t & _MASK32, g, t >> 32, torch.full_like(t, STREAM)), philox_key(seed))
+    words = philox4x32_10((t & MASK32, g, t >> 32, torch.full_like(t, HDP_STREAM)), philox_key(seed))
     bits = torch.stack(words, dim=-1).reshape(t.shape[0], 4 * groups)[:, :k]
     return gumbel_from_bits(bits)
 

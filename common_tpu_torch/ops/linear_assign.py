@@ -13,10 +13,10 @@ only for the clusters that can still win: a cluster more than REACH nats
 below its panel's top score cannot, whatever its noise (see the source;
 `noise_work` counts what given inputs need). Its noise takes four draws
 from each Philox4x32-10 call: counter (row, k // 4, 0, 1), word j for
-cluster 4 (k // 4) + j, a stream apart from the Gaussian kernels' (last
-counter word 0), so `linear_philox_scores` checks the kernel draw for
-draw. The Pallas kernel's tiling arguments and its padding of K have no
-counterpart.
+cluster 4 (k // 4) + j, its last word the kernel's own stream
+(`ops/philox.py` LINEAR_STREAM), so `linear_philox_scores` checks the
+kernel draw for draw. The Pallas kernel's tiling arguments and its padding
+of K have no counterpart.
 
 Inputs
   X     [N, D]  rows (0/1 for bbv), float32
@@ -31,11 +31,9 @@ from __future__ import annotations
 import torch
 
 from common_tpu_torch.ops import _build
-from common_tpu_torch.ops.gaussian_assign import gumbel_from_bits, philox4x32_10, philox_key
+from common_tpu_torch.ops.philox import LINEAR_STREAM, gumbel_from_bits, philox4x32_10, philox_key
 from common_tpu_torch.rng import gumbel_argmax
 
-# The last word of the noise's Philox counter; the Gaussian kernels' is 0.
-STREAM = 1
 # A draw lies in [-2.78, 16.64] (u in [1e-7, 1 - 2^-24]): a cluster more than
 # their spread, 19.42 nats, below another's score never wins. The kernel
 # draws no noise for a cluster more than REACH (plus 1e-5 of the top score,
@@ -78,9 +76,9 @@ def linear_philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int) -> torc
     """[len(rows), k] float32: the Gumbel noise the CUDA kernel adds, in plain ops.
 
     One Philox4x32-10 call keyed on (seed, 0x5EED) for each row and group
-    of four clusters g, counter (row, g, 0, STREAM); its word j (x, y, z,
-    w) gives cluster 4g + j, each word its own uniform from its top 24 bits,
-    floored at 1e-7. The last group of a K that is not a multiple of 4 uses
+    of four clusters g, counter (row, g, 0, LINEAR_STREAM) (`csrc/philox.cuh`
+    linear_words); its word j (x, y, z, w) gives cluster 4g + j, each word
+    its own uniform from its top 24 bits, floored at 1e-7. The last group of a K that is not a multiple of 4 uses
     only its first words. `rows` are global row indices, so any slice of X
     can be checked draw for draw against the kernel.
     """
@@ -88,7 +86,7 @@ def linear_philox_gumbel(seed: torch.Tensor, rows: torch.Tensor, k: int) -> torc
     r = rows.to(torch.int64)[:, None].expand(-1, groups)
     g = torch.arange(groups, device=rows.device, dtype=torch.int64)[None, :].expand_as(r)
     zero = torch.zeros_like(r)
-    words = philox4x32_10((r, g, zero, zero + STREAM), philox_key(seed))
+    words = philox4x32_10((r, g, zero, zero + LINEAR_STREAM), philox_key(seed))
     bits = torch.stack(words, dim=-1).reshape(r.shape[0], 4 * groups)[:, :k]
     return gumbel_from_bits(bits)
 

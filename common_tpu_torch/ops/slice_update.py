@@ -23,8 +23,9 @@ the host loop can evaluate it too.
 
 The level's uniform comes in as a device tensor; the interval's placement
 (draw 0) and the shrink proposals (draw j) are Philox4x32-10 uniforms
-keyed on (seed, 0x5EED) with counter (j // 4, 0, 0, STREAM), word j % 4
-(`csrc/philox.cuh` slice_words). The interval and the proposals are
+keyed on (seed, 0x5EED) with counter (j // 4, 0, 0, SLICE_STREAM), word
+j % 4 (`csrc/philox.cuh` slice_words; the stream words of all the kernels
+are listed in `ops/philox.py`). The interval and the proposals are
 float32, each operation rounded on its own, so `slice_update_plain`, the
 plain version, repeats the kernel's points bit for bit and its float64
 sums in the kernel's order (one slot a lane, an xor butterfly). It is the
@@ -41,12 +42,10 @@ from typing import Optional
 import torch
 
 from common_tpu_torch.ops import _build
-from common_tpu_torch.ops.gaussian_assign import philox4x32_10, philox_key, uniform_from_bits
+from common_tpu_torch.ops.philox import SLICE_STREAM, philox4x32_10, philox_key, uniform_from_bits
 from common_tpu_torch.utils import profiling
 
 KIND_ALPHA, KIND_BETA, KIND_CRP = 0, 1, 2
-# The last word of the draws' Philox counter; the assignment kernels' are 0 and 1.
-STREAM = 2
 _LANES = 32
 _DTYPES = {"x0": torch.float32, "level": torch.float32, "seed": torch.int32, "counts": torch.int32,
            "other": torch.float32, "n": torch.float32, "heads": torch.float32}
@@ -141,11 +140,19 @@ class HyperTarget:
         return torch.where(v > 0, f, torch.full_like(f, -math.inf))
 
 
+def exponential_rate(prior, x0: torch.Tensor) -> Optional[float]:
+    """The rate of `prior` where a `HyperTarget` can score the coordinate x0:
+    a `scalar_functions.log_exponential` prior (it carries `exponential_rate`)
+    and a float32 x0. None for any other prior or dtype (the host loop)."""
+    rate = getattr(prior, "exponential_rate", None)
+    return rate if x0.dtype == torch.float32 else None
+
+
 def slice_draws(seed: torch.Tensor, count: int) -> torch.Tensor:
     """[count] float32: the kernel's uniforms 0 .. count - 1 for `seed`."""
     groups = torch.arange(-(-count // 4), device=seed.device, dtype=torch.int64)
     zero = torch.zeros_like(groups)
-    words = philox4x32_10((groups, zero, zero, zero + STREAM), philox_key(seed))
+    words = philox4x32_10((groups, zero, zero, zero + SLICE_STREAM), philox_key(seed))
     return uniform_from_bits(torch.stack(words, dim=-1).reshape(-1)[:count])
 
 

@@ -55,7 +55,7 @@ from common_tpu_torch.kernels import blocked
 from common_tpu_torch.ops.gaussian_assign import fused_gaussian_assign
 from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.parallel.chains import stack_states, unstack_state
-from common_tpu_torch.rng import gumbel_argmax
+from common_tpu_torch.rng import device_seed, gumbel_argmax
 from common_tpu_torch.state import MixtureState
 
 
@@ -67,7 +67,7 @@ def _local_sweep(state_c: MixtureState, data_blk, generator, mesh, row0: int) ->
     if state_c.lik_names == ("niw",):
         x, mask = data_blk[0]
         mu, binv, base, logw = blocked.fused_assign_inputs(state_c, data_blk, generator)
-        z = fused_gaussian_assign(x, mu, binv, base, blocked._device_seed(generator, x.device),
+        z = fused_gaussian_assign(x, mu, binv, base, device_seed(generator, x.device),
                                   row_offset=row0)
         m = mask.to(x.dtype)
         z = blocked._prior_fallback(z, logw, m, mesh_mod.data_generator(mesh, generator))

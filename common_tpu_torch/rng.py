@@ -83,6 +83,12 @@ def gumbel_argmax_rows(logits: torch.Tensor, generator: torch.Generator, row0: i
     return torch.argmax(logits + g, dim=-1)
 
 
+def device_seed(generator: torch.Generator, device) -> torch.Tensor:
+    """A kernel launch's seed: one int32 drawn on the device from `generator`, never read by the host."""
+    return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
+                         dtype=torch.int32)
+
+
 def shard_generator(generator: torch.Generator, shard: int) -> torch.Generator:
     """A new generator for shard `shard`'s own draws, derived from `generator`
     (the counterpart of JAX's `fold_in(key, shard)`).

@@ -25,6 +25,7 @@ import torch
 from common_tpu_torch import validator
 from common_tpu_torch.likelihoods import base as lik_base
 from common_tpu_torch.models import model_descriptor
+from common_tpu_torch.ops.slice_update import KIND_CRP, HyperTarget, exponential_rate
 from common_tpu_torch.rng import gumbel_argmax
 
 
@@ -465,6 +466,18 @@ def score_assignment(state: MixtureState):
         + torch.lgamma(alpha)
         - torch.lgamma(alpha + n)
     )
+
+
+def crp_hyper_target(state: MixtureState, prior) -> Optional[HyperTarget]:
+    """The `ops.slice_update.HyperTarget` of the CRP concentration under
+    `prior`: the part of `score_assignment` that moves with alpha, plus the
+    prior. None for a fixed-K state or a prior or dtype the target cannot
+    take (`kernels/slice_.py` `hp` then scores `score_assignment` in its
+    host loop)."""
+    if state.fixed:
+        return None
+    rate = exponential_rate(prior, state.cluster_hp["alpha"])
+    return None if rate is None else HyperTarget(KIND_CRP, rate, state.counts)
 
 
 def score_likelihood(state: MixtureState, fid: Optional[int] = None):

@@ -73,11 +73,10 @@ import numpy as np
 import torch
 
 from common_tpu_torch import validator
-from common_tpu_torch.kernels.blocked import _device_seed
 from common_tpu_torch.ops.hdp_assign import hdp_assign
 from common_tpu_torch.parallel import mesh as mesh_mod
 from common_tpu_torch.rng import beta as beta_draw
-from common_tpu_torch.rng import standard_gamma, uniform_open
+from common_tpu_torch.rng import device_seed, standard_gamma, uniform_open
 from common_tpu_torch.utils import profiling
 
 NOISE_TOKENS = 4096  # tokens whose Gumbel noise the collapsed sweep draws in one call
@@ -504,7 +503,7 @@ def _assign_docs(state: HDPState, words, mask, phi, theta, generator: torch.Gene
     log_phi_t = _log_clipped(phi).t().contiguous()  # [V, K], a word's scores one row
     log_theta = _log_clipped(theta)                 # [D, K]
     step = min(D, max(1024, (1 << 26) // max(L * K, 1)) if doc_chunk is None else int(doc_chunk))
-    seed = _device_seed(generator, words.device)
+    seed = device_seed(generator, words.device)
     z_old = state.z.view(D, L)
     z = torch.empty_like(z_old)
     dk = torch.empty((D, K), dtype=torch.float32, device=z.device)

@@ -285,7 +285,7 @@ def test_linear_wrapper_dominance_padding_and_plain_seeding():
         la.fused_linear_assign(t[0], t[1][:, :3], t[2], seed)
     # the noise check, as the CUDA kernel draws it: word j of the Philox
     # call with counter (row, g, 0, 1) is cluster 4g + j
-    from common_tpu_torch.ops.gaussian_assign import gumbel_from_bits, philox4x32_10, philox_key
+    from common_tpu_torch.ops.philox import gumbel_from_bits, philox4x32_10, philox_key
     v = la.linear_philox_scores(*t, seed, row0=10) - la.linear_scores(*t)
     rows = torch.arange(10, 1510)
     zero = torch.zeros_like(rows)

@@ -18,7 +18,7 @@ import torch
 
 from common_tpu_torch import rng, topic
 from common_tpu_torch.ops import hdp_assign as ha
-from common_tpu_torch.ops.gaussian_assign import philox4x32_10
+from common_tpu_torch.ops.philox import philox4x32_10
 from common_tpu_torch.topic import hdp
 
 V = 23

@@ -20,6 +20,7 @@ from scipy import stats as sps
 
 from common_tpu_torch.ops import gaussian_assign as ga
 from common_tpu_torch.ops import linear_assign as la
+from common_tpu_torch.ops import philox
 
 MASK = 0xFFFFFFFF
 SEED = 5
@@ -123,7 +124,7 @@ def test_reach_covers_the_spread_of_a_draw():
     panel's top score: that is exact only while REACH exceeds the spread of
     a draw (u from 1e-7 to 1 - 2^-24, the extremes of the bits), and the
     kernel's constant in csrc/philox.cuh is the same number."""
-    lo, hi = ga.gumbel_from_bits(torch.tensor([0, MASK], dtype=torch.int64)).tolist()
+    lo, hi = philox.gumbel_from_bits(torch.tensor([0, MASK], dtype=torch.int64)).tolist()
     assert (lo, hi) == (_gumbel(0), _gumbel(MASK))
     assert la.REACH > hi - lo + 0.05
     csrc = Path(la.__file__).resolve().parent.parent / "csrc"

@@ -16,6 +16,7 @@ from common_tpu.likelihoods import niw as jniw
 from common_tpu.ops.gaussian_assign import fused_gaussian_assign as j_assign
 from common_tpu.ops.suffstat import fused_scatter_stats as j_scatter
 from common_tpu_torch.ops import gaussian_assign as ga
+from common_tpu_torch.ops import philox
 from common_tpu_torch.ops import suffstat as ss
 
 torch.set_num_threads(2)
@@ -93,7 +94,7 @@ def test_philox_matches_known_answers(ctr, key, want):
     """Random123's known-answer vectors for Philox4x32-10."""
     def t(v):
         return torch.tensor([v], dtype=torch.int64)
-    got = ga.philox4x32_10(tuple(map(t, ctr)), tuple(map(t, key)))
+    got = philox.philox4x32_10(tuple(map(t, ctr)), tuple(map(t, key)))
     assert tuple(int(w) for w in got) == want
 
 

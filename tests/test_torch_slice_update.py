@@ -10,7 +10,10 @@ checked, the route is shown to follow the likelihood and the prior, and
 coordinate, each drawing its level with `uniform_open` first.
 """
 
+import ast
+import dataclasses
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +25,8 @@ from common_tpu_torch import models, rng
 from common_tpu_torch import scalar_functions as sf
 from common_tpu_torch import state as st
 from common_tpu_torch.kernels import slice_
+from common_tpu_torch.likelihoods.base import Likelihood
+from common_tpu_torch.likelihoods.bbv import BBV
 from common_tpu_torch.ops import slice_update as su
 from common_tpu_torch.utils import profiling
 
@@ -244,3 +249,108 @@ def test_hp_keeps_the_capture_contract(monkeypatch):
     for (name, x0, x1, c), log_u in zip(moves, levels):
         assert x1 != x0
         assert log_u <= f(name, x1, c) - f(name, x0, c) + 1e-9, (name, c)
+
+
+def _fixed_state():
+    s, data = _bbv_state()
+    defn = st.model_definition(s.assignments.shape[0], [models.bbv(3)], k_max=4)
+    return st.initialize(defn, data, rng(0, "cpu").generator, assignment=s.assignments, fixed=True)
+
+
+def _float64(s):
+    return dataclasses.replace(s, cluster_hp={"alpha": s.cluster_hp["alpha"].double()})
+
+
+def _feature_target(make, pname, prior, dtype=torch.float32):
+    s, _ = make()
+    hyper = {k: v.to(dtype) for k, v in s.hypers[0].items()}
+    return s, hyper, s.likelihoods()[0].hyper_target(pname, hyper, s.stats[0], s.counts, prior)
+
+
+def _crp_target(s, prior):
+    return s, None, st.crp_hyper_target(s, prior)
+
+
+EXP, GAMMA = sf.log_exponential(2.0), sf.log_gamma(2.0, 1.0)
+TARGETS = {
+    "bbv_alpha": lambda: _feature_target(_bbv_state, "alpha", EXP),
+    "bbv_beta": lambda: _feature_target(_bbv_state, "beta", EXP),
+    "bbv_gamma": lambda: _feature_target(_bbv_state, "alpha", GAMMA),
+    "bbv_float64": lambda: _feature_target(_bbv_state, "beta", EXP, torch.float64),
+    "dd_exponential": lambda: _feature_target(_dd_state, "alphas", EXP),
+    "crp_exponential": lambda: _crp_target(_bbv_state()[0], EXP),
+    "crp_gamma": lambda: _crp_target(_bbv_state()[0], GAMMA),
+    "crp_float64": lambda: _crp_target(_float64(_bbv_state()[0]), EXP),
+    "crp_fixed": lambda: _crp_target(_fixed_state(), EXP),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TARGETS))
+def test_the_likelihood_and_the_state_give_the_hyper_targets(case):
+    """bbv's float32 Beta hypers and a CRP state's float32 concentration
+    under an Exp prior have a `HyperTarget` on the state's own tensors, at
+    column 0 with the other hyper fixed; another prior or dtype, dd (which
+    inherits the base class's None) and a fixed-K state have none."""
+    s, hyper, target = TARGETS[case]()
+    if case in ("bbv_alpha", "bbv_beta"):
+        kind, other = (su.KIND_ALPHA, "beta") if case == "bbv_alpha" else (su.KIND_BETA, "alpha")
+        assert (target.kind, target.rate, target.c) == (kind, 2.0, 0)
+        assert target.other is hyper[other] and target.counts is s.counts
+        assert target.n is s.stats[0]["n"] and target.heads is s.stats[0]["heads"]
+    elif case == "crp_exponential":
+        assert (target.kind, target.rate) == (su.KIND_CRP, 2.0) and target.counts is s.counts
+    else:
+        assert target is None
+
+
+def test_the_slice_sampler_leaves_the_route_to_the_targets_owners():
+    """`kernels/slice_.py` imports no likelihood module and no `KIND_*`,
+    names no likelihood class, and reads no prior's tag: the likelihood's
+    `hyper_target` and `state.crp_hyper_target` decide the route."""
+    path = Path(slice_.__file__)
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert not (node.module or "").startswith("common_tpu_torch.likelihoods"), node.module
+            assert not [a.name for a in node.names if a.name.startswith("KIND_")]
+        elif isinstance(node, ast.Import):
+            assert not [a.name for a in node.names if "likelihoods" in a.name]
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert not {n for n in names if n.startswith("KIND_") or n in {"BBV", "Likelihood"}}
+    assert "exponential_rate" not in path.read_text()
+
+
+@pytest.mark.parametrize("case", ["dd", "bbv_without_a_target"])
+def test_a_likelihood_without_a_hyper_target_takes_the_loop(case, monkeypatch):
+    """A likelihood whose `hyper_target` is None takes the host loop under
+    the `log_exponential` prior that sends bbv to the card: dd, and bbv
+    itself once its `hyper_target` is the base class's."""
+    spec = _spec(sf.log_exponential(1.0))
+    if case == "dd":
+        (s, data), specs = _dd_state(), {0: {"alphas": spec}}
+    else:
+        monkeypatch.setattr(BBV, "hyper_target", Likelihood.hyper_target)
+        (s, data), specs = _bbv_state(), {0: {"alpha": spec, "beta": spec}}
+    with profiling.recording() as rec:
+        post = slice_.hp(s, data, rng(3, "cpu").generator, specs)
+    summary = rec.summary()
+    coords = sum(s.hypers[0][p].shape[0] for p in specs[0])
+    assert rec.counters.get("slice.fused_updates", 0) == 0
+    assert summary["slice.update"]["calls"] == coords == summary["slice.shrink"]["calls"]
+    assert all(torch.isfinite(post.hypers[0][p]).all() for p in specs[0])
+
+
+def test_bbv_and_the_crp_take_their_targets_under_exponential_priors():
+    """Under `log_exponential` priors on alpha, beta and the concentration,
+    every one of the 2d + 1 updates of a d-column bbv state takes its
+    `HyperTarget`, and no update opens a loop span."""
+    d = 5
+    s, data = _bbv_state(d=d)
+    spec = _spec(sf.log_exponential(1.0))
+    with profiling.recording() as rec:
+        slice_.hp(s, data, rng(6, "cpu").generator, {0: {"alpha": spec, "beta": spec}},
+                  cluster={**spec, "bounds": (1e-4, 1e4)})
+    summary = rec.summary()
+    assert rec.counters["slice.fused_updates"] == summary["slice.update"]["calls"] == 2 * d + 1
+    assert "slice.step_out" not in summary and "slice.shrink" not in summary
