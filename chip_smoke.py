@@ -7,14 +7,18 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. Environment: the card's name and power limit (nvidia-smi), and the
    build of the CUDA kernels from `common_tpu_torch/csrc/` (one nvcc per
-   source, all at once).
+   source, all at once), with each kernel's registers and spills and
+   ptxas's notes (`-Xptxas -v`), and the dynamic shared memory a block of
+   the Gaussian assignment's warpgroup route asks for at D = 16, 64, 128
+   and 256.
 2. Each kernel against its plain PyTorch version on the card:
    assignment on well-separated clusters (n=16421, D=256, K=64, dense
    triangular B_k) against the plain sampler, and draw for draw against
    the plain scores plus the kernel's own Philox noise, there, on
-   clusters told apart by B_k alone, and at the widest D the kernel takes
-   (n=4113, D=384, K=16) and a D that fills no panel (n=5003, D=203,
-   K=33); its sampling distribution (n=64, D=4, K=5, 300 seeds); the
+   clusters told apart by B_k alone (these at D = 256 on the warpgroup
+   route), and at the widest D the kernel takes (n=4113, D=384, K=16)
+   and a D that fills no panel (n=5003, D=203, K=33), both on the
+   `mma.sync` route; its sampling distribution (n=64, D=4, K=5, 300 seeds); the
    multi-chain assignment draw for draw on dense, non-triangular B_k
    (n=16421, D=256, K=64, C=4), equal to the single-chain kernel at C=1,
    and its distribution with independent chains (n=64, D=4, K=5, C=3, 300
@@ -35,7 +39,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    card) on the largest cluster, with sum_xxT equal to its transpose bit
    for bit; times fused and plain sweeps, and each kernel against its plain
    version, its bound and its library yardstick on those inputs (the
-   scatter wrapper's sort and search apart from its kernels); the replay
+   scatter wrapper's sort and search apart from its kernels); the
+   assignment kernel on both routes in turns (warpgroup, mma.sync,
+   mma.sync, warpgroup: `ms` and `mma_sync_ms`), the `mma.sync` route
+   through the library's own entry point and checked draw for draw too,
+   and all 10 launches of the run on the warpgroup route; the replay
    check (below) on 2 runner steps; traces one more sweep for device time
    by kernel and the device's idle share.
 4. Path A, multi-chain, on the data of phase 3: four CRP initialisations,
@@ -45,9 +53,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    multi-chain kernel once a sweep, the scatter kernel once a chain a
    sweep), counts, finite values, the stats against the plain restat, and
    the multi-chain kernel draw for draw on the sweep's own inputs over all
-   rows and chains, and the replay of one sweep_chains; prints
-   split-R-hat, ESS, chain-sweeps/s, the kernel against its plain version
-   and the idle share of a traced sweep.
+   rows and chains (and on the `mma.sync` route), every launch on the
+   warpgroup route, and the replay of one sweep_chains; prints
+   split-R-hat, ESS, chain-sweeps/s, the kernel on both routes in turns
+   against its plain version and the idle share of a traced sweep.
 5. Path B, config 2: a Beta-Bernoulli DPMM at 100k x 64, K_max=32 (8
    planted Beta(0.5, 0.5) profiles, numpy seed 0, 4096 held-out rows),
    runner(..., [("assign_blocked_fused", {}), ("slice_hp", {...})]) for 8
@@ -492,6 +501,40 @@ def gaussian_yardsticks(x, mu, binv, n_chains: int = 1) -> dict:
             "library": f"torch.matmul(X[{rows} rows], [{d}, {slots * d}]) over {n} rows, fp32"}
 
 
+def mma_sync_route(x, mu, binv, base, seed, n_chains: int = 0):
+    """Kernel 1 (n_chains 0) or 4 through the library's `mma.sync` entry
+    point, whatever D: the route the warpgroup kernel replaced, timed
+    beside it as a yardstick. The wrappers never call it at D = 256."""
+    import torch
+
+    from common_tpu_torch.ops import _build
+
+    lib = _build.library()
+    n, d = x.shape
+    z = torch.empty((max(n_chains, 1), n), device=x.device, dtype=torch.int32)
+    ptrs = (x.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(), seed.data_ptr(), z.data_ptr())
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        if n_chains:
+            err = lib.gaussian_assign_chains_launch(*ptrs, n, d, mu.shape[0] // n_chains, n_chains, stream)
+        else:
+            err = lib.gaussian_assign_launch(*ptrs, n, d, mu.shape[0], 0, stream)
+        _build.check(err, "mma.sync route")
+        return z if n_chains else z[0]
+
+    return run
+
+
+def route_turns(wgmma_fn, mma_fn, reps: int) -> tuple:
+    """Mean ms of each route, timed in turns (warpgroup, mma.sync, mma.sync,
+    warpgroup): the medians of each route's two means, and every mean."""
+    times = {"wgmma": [], "mma": []}
+    for route in ("wgmma", "mma", "mma", "wgmma"):
+        times[route].append(cuda_ms(wgmma_fn if route == "wgmma" else mma_fn, reps))
+    return float(np.median(times["wgmma"])), float(np.median(times["mma"])), times
+
+
 def profile_sweep(fn):
     """Device time by kernel, the idle share and the count of device kernels
     and copies, over one traced call of fn(); returns (idle share, count)."""
@@ -541,8 +584,13 @@ def phase_environment() -> dict:
         f"(nvcc {_build.build_seconds:.2f} s)")
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         for ln in path.read_text().splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "(C75" in ln:
                 log(f"  ptxas: {ln.strip()}")
+    lib = _build.library()
+    log("  kernels 1 and 4, warpgroup route: dynamic shared memory a block "
+        + ", ".join(f"D={d}: {lib.gaussian_assign_wgmma_smem(d)} B" for d in (16, 64, 128, 256))
+        + f" (of {torch.cuda.get_device_properties(0).shared_memory_per_block_optin} B); widest D "
+        f"{lib.gaussian_assign_wgmma_max_dim()} (mma.sync route to {lib.gaussian_assign_max_dim()})")
     return {"card": line}
 
 
@@ -1000,7 +1048,7 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     run.run(gen, 1)
     torch.cuda.synchronize()
     log(f"first fused sweep, with one-time CUDA library set-up: {time.perf_counter() - t0:.2f} s")
-    ga.fused_gaussian_assign.launches = 0
+    ga.fused_gaussian_assign.launches = ga.fused_gaussian_assign.wgmma = 0
     ss.fused_scatter_stats.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1010,9 +1058,11 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
     launches = {"gaussian_assign": ga.fused_gaussian_assign.launches,
                 "suffstat": ss.fused_scatter_stats.launches}
     log(f"runner.run({N_SWEEPS} fused sweeps): {run_s:.3f} s, "
-        f"{N_SWEEPS / run_s:.3f} sweeps/s (with the score trace); launches {launches}")
+        f"{N_SWEEPS / run_s:.3f} sweeps/s (with the score trace); launches {launches}, "
+        f"of kernel 1 on the warpgroup route {ga.fused_gaussian_assign.wgmma}")
     require(all(v == N_SWEEPS for v in launches.values()),
             f"kernel launches {launches} != {N_SWEEPS} sweeps")
+    require(ga.fused_gaussian_assign.wgmma == N_SWEEPS, "kernel 1 left the warpgroup route at D = 256")
 
     scores = run.score_trace[1:]
     k_active = run.k_active_trace[1:]
@@ -1059,12 +1109,16 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
                                x, mu, binv, base, seed)
     require_exact(exact, f"assign on the main path's inputs ({N}x{D}, K={K_MAX}), draw for draw")
     zi = torch.where(mask > 0, s.assignments, K_MAX).to(torch.int32)
-    k1 = cuda_ms(lambda: ga.fused_gaussian_assign(x, mu, binv, base, seed), 3)
+    old_route = mma_sync_route(x, mu, binv, base, seed)
+    require_exact(assign_exact_check(old_route(), x, mu, binv, base, seed),
+                  f"assign on the mma.sync route, main path's inputs, draw for draw")
+    k1, m1, turns1 = route_turns(lambda: ga.fused_gaussian_assign(x, mu, binv, base, seed), old_route, 3)
     p1 = cuda_ms(lambda: ga.gaussian_assign_plain(x, mu, binv, base, gen), 2)
     y1 = gaussian_yardsticks(x, mu, binv)
-    log(f"gaussian_assign {N}x{D} K={K_MAX}: kernel {k1:.2f} ms, plain {p1:.2f} ms; bound "
-        f"{y1['bound_ms']:.2f} ms ({y1['bound_by']}, 3xTF32; fp32 CUDA cores {y1['bound_fp32_ms']:.2f} ms), "
-        f"share {y1['bound_ms'] / k1:.3f}; library {y1['library']}: {y1['library_ms']:.2f} ms")
+    log(f"gaussian_assign {N}x{D} K={K_MAX}: warpgroup route {k1:.2f} ms, mma.sync route {m1:.2f} ms "
+        f"(in turns {turns1}), plain {p1:.2f} ms; bound {y1['bound_ms']:.2f} ms ({y1['bound_by']}, 3xTF32; "
+        f"fp32 CUDA cores {y1['bound_fp32_ms']:.2f} ms), share {y1['bound_ms'] / k1:.3f} (mma.sync "
+        f"{y1['bound_ms'] / m1:.3f}); library {y1['library']}: {y1['library_ms']:.2f} ms")
 
     # kernel 2: the sort and the kernels timed apart; float64 on the largest cluster
     order, offsets = ss.sort_by_cluster(zi, K_MAX)
@@ -1110,7 +1164,7 @@ def phase_main_path(kernel_checks: dict, headline: dict) -> dict:
              "max_abs_err": exact["shortfall"],
              "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
              "agree": kernel_checks["assign_agree"],
-             "ms": k1, "plain_ms": p1, **y1},
+             "ms": k1, "mma_sync_ms": m1, "plain_ms": p1, **y1},
             {"name": "scatter_stats", "route": "cuda",
              "source": "common_tpu_torch/csrc/suffstat.cu",
              "replaces": "common_tpu/ops/suffstat.py:75",
@@ -1156,7 +1210,7 @@ def phase_chains(headline: dict) -> dict:
     torch.cuda.synchronize()
     log(f"first sweep_chains(fused=True): {time.perf_counter() - t0:.2f} s")
 
-    ga.fused_gaussian_assign_chains.launches = 0
+    ga.fused_gaussian_assign_chains.launches = ga.fused_gaussian_assign_chains.wgmma = 0
     ss.fused_scatter_stats.launches = 0
     sweep_ms, score_tr, lp_tr = [], [], []
     torch.cuda.synchronize()
@@ -1176,8 +1230,9 @@ def phase_chains(headline: dict) -> dict:
     log(f"{CHAIN_SWEEPS} sweeps of {C} chains with per-chain scores and held-out logp: "
         f"{run_s:.3f} s, {C * CHAIN_SWEEPS / run_s:.3f} chain-sweeps/s; sweep_chains alone "
         f"{[round(t, 1) for t in sweep_ms]} ms; launches {launches}")
-    require(launches["gaussian_assign_chains"] == CHAIN_SWEEPS,
-            f"multi-chain kernel launches {launches} != {CHAIN_SWEEPS} sweeps")
+    require(launches["gaussian_assign_chains"] == CHAIN_SWEEPS == ga.fused_gaussian_assign_chains.wgmma,
+            f"multi-chain kernel launches {launches} != {CHAIN_SWEEPS} sweeps on the warpgroup route "
+            f"({ga.fused_gaussian_assign_chains.wgmma})")
     require(launches["suffstat"] == C * CHAIN_SWEEPS,
             f"scatter launches {launches} != {C} chains x {CHAIN_SWEEPS} sweeps")
 
@@ -1212,12 +1267,17 @@ def phase_chains(headline: dict) -> dict:
     exact = require_exact(chains_exact_check(z, x, mu, minv, base, seed, C),
                           f"assign_chains on path A's inputs ({N}x{D}, K={K_MAX}, C={C}), "
                           f"draw for draw")
-    k4 = cuda_ms(lambda: ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C), 3)
+    old_route = mma_sync_route(x, mu, minv, base, seed, C)
+    require_exact(chains_exact_check(old_route(), x, mu, minv, base, seed, C),
+                  f"assign_chains on the mma.sync route, path A's inputs, draw for draw")
+    k4, m4, turns4 = route_turns(lambda: ga.fused_gaussian_assign_chains(x, mu, minv, base, seed, C),
+                                 old_route, 2)
     p4 = cuda_ms(lambda: ga.gaussian_assign_chains_plain(x, mu, minv, base, C, gen), 2)
     y4 = gaussian_yardsticks(x, mu, minv, C)
-    log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: kernel {k4:.2f} ms, plain {p4:.2f} ms; "
-        f"bound {y4['bound_ms']:.2f} ms ({y4['bound_by']}, 3xTF32; fp32 CUDA cores "
-        f"{y4['bound_fp32_ms']:.2f} ms), share {y4['bound_ms'] / k4:.3f}; library {y4['library']}: "
+    log(f"gaussian_assign_chains {N}x{D} K={K_MAX} C={C}: warpgroup route {k4:.2f} ms, mma.sync route "
+        f"{m4:.2f} ms (in turns {turns4}), plain {p4:.2f} ms; bound {y4['bound_ms']:.2f} ms "
+        f"({y4['bound_by']}, 3xTF32; fp32 CUDA cores {y4['bound_fp32_ms']:.2f} ms), share "
+        f"{y4['bound_ms'] / k4:.3f} (mma.sync {y4['bound_ms'] / m4:.3f}); library {y4['library']}: "
         f"{y4['library_ms']:.2f} ms")
     replayed = replay(f"path A: 1 sweep_chains of {C} chains",
                       lambda: blocked.sweep_chains(states, data, rng(SEED + 301, dev).generator, fused=True))
@@ -1229,7 +1289,7 @@ def phase_chains(headline: dict) -> dict:
                    "launches": launches["gaussian_assign_chains"],
                    "max_abs_err": exact["shortfall"],
                    "mismatch": exact["mismatch"], "tie_rows": exact["ties"],
-                   "ms": k4, "plain_ms": p4, **y4},
+                   "ms": k4, "mma_sync_ms": m4, "plain_ms": p4, **y4},
         "chain_sweeps_per_s": C * CHAIN_SWEEPS / run_s,
         "sweep_chains_ms": float(np.median(sweep_ms)),
         "split_rhat": rhat, "ess": ess,

@@ -14,13 +14,13 @@
 // 2^-11 |lo| <= 2^-23 |a|, and the dropped lo_a * lo_b below 2^-24 |a b|,
 // the size of fp32's own rounding. No product here is a single TF32 pass.
 //
-// The instruction is mma.sync.m16n8k8 (TF32 in, fp32 accumulate): both
-// operands come from registers, so a kernel centres and splits each
-// fragment in registers right after loading it from shared memory. wgmma
-// reads B from shared memory, so each split would need its hi and lo
-// halves written back to shared memory first (twice the panel, another
-// pass and barrier); the price of mma.sync is that it does not reach
-// wgmma's peak rate on Hopper.
+// `mma` is mma.sync.m16n8k8 (TF32 in, fp32 accumulate): both operands
+// come from registers, so a kernel centres and splits each fragment in
+// registers right after loading it from shared memory. It runs at about
+// half of Hopper's TF32 peak. wgmma (wgmma.cuh) reaches the peak but reads
+// B from shared memory, so a kernel on it splits B once into hi and lo
+// panels in device memory and brings both in; A still comes from
+// registers, split as here (gaussian_assign.cu, the warpgroup route).
 #pragma once
 
 #include <cstdint>

@@ -62,6 +62,16 @@ def _declare(lib):
     lib.gaussian_assign_max_dim.restype = ci
     lib.gaussian_assign_chains_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.gaussian_assign_chains_launch.restype = ci
+    lib.gaussian_assign_wgmma_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.gaussian_assign_wgmma_launch.restype = ci
+    lib.gaussian_assign_chains_wgmma_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.gaussian_assign_chains_wgmma_launch.restype = ci
+    lib.gaussian_assign_wgmma_max_dim.argtypes = []
+    lib.gaussian_assign_wgmma_max_dim.restype = ci
+    lib.gaussian_assign_wgmma_smem.argtypes = [ci]
+    lib.gaussian_assign_wgmma_smem.restype = ctypes.c_longlong
+    lib.gaussian_assign_wgmma_scratch.argtypes = [ci, ci]
+    lib.gaussian_assign_wgmma_scratch.restype = ctypes.c_longlong
     lib.scatter_stats_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.scatter_stats_launch.restype = ci
     lib.linear_assign_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]

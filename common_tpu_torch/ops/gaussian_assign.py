@@ -17,7 +17,13 @@ into a TF32 high part and the fp32 rest, three TF32 products summed in
 fp32), which keeps fp32 accuracy; no product is a single TF32 pass. It
 streams each B_k through shared memory in panels, because one B_k at
 D = 256 (256 KB) does not fit a block's 227 KB, and takes any D up to
-`gaussian_assign_max_dim` (384 on an H100); wider rows raise.
+`gaussian_assign_max_dim` (384 on an H100); wider rows raise. It has two
+routes, chosen by `wgmma_route` from D and X's alignment alone: Hopper's
+warpgroup products (`wgmma`, B's split panels brought by TMA from a
+scratch the wrapper allocates) for every D up to 256 that is a multiple
+of 4 with X 16-byte aligned, and `mma.sync` for the rest. Each launch on
+the first route adds one to the wrapper's `wgmma` and to the program
+counter `assign.wgmma`.
 Its Gumbel noise is a Philox4x32-10 stream keyed on the seed with
 counter (row_offset + row, k, c), k the slot within chain c, so the draws
 do not depend on the tiling, chain 0 draws the single-chain stream, and a
@@ -44,6 +50,7 @@ import torch
 from common_tpu_torch.ops import _build
 from common_tpu_torch.ops.philox import GAUSSIAN_STREAM, gumbel_from_bits, philox4x32_10, philox_key
 from common_tpu_torch.rng import gumbel_argmax, gumbel_argmax_rows
+from common_tpu_torch.utils import profiling
 
 
 def gaussian_scores(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
@@ -121,8 +128,20 @@ def _check(X, mu, binv, base, seed) -> None:
             raise ValueError(f"X is on {X.device} but {name} is on {t.device}")
 
 
+def wgmma_route(X: torch.Tensor, max_dim: int) -> bool:
+    """True where a launch takes the warpgroup kernel, False for `mma.sync`.
+
+    The warpgroup kernel loads X's rows as 16-byte pieces and its products'
+    width stops at 256: D a multiple of 4, at most `max_dim` (the device's
+    `gaussian_assign_wgmma_max_dim`, 256 on an H100), X 16-byte aligned.
+    """
+    D = X.shape[1]
+    return 0 < D <= max_dim and D % 4 == 0 and X.data_ptr() % 16 == 0
+
+
 def _launch_checks(X, mu, binv, base, seed, what: str):
-    """Device, type, layout and width checks before a launch; the kernel library."""
+    """Device, type, layout and width checks before a launch; the kernel
+    library and whether the launch takes the warpgroup route."""
     if X.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {X.device}")
     for name, t in (("X", X), ("mu", mu), ("binv", binv), ("base", base)):
@@ -132,10 +151,15 @@ def _launch_checks(X, mu, binv, base, seed, what: str):
         raise ValueError(f"seed must be int32, got {seed.dtype}")
     lib = _build.library()
     with torch.cuda.device(X.device):
-        max_dim = lib.gaussian_assign_max_dim()
+        max_dim, wgmma_dim = lib.gaussian_assign_max_dim(), lib.gaussian_assign_wgmma_max_dim()
     if X.shape[1] > max_dim:
         raise ValueError(f"{what} supports D <= {max_dim}, got {X.shape[1]}")
-    return lib
+    return lib, wgmma_route(X, wgmma_dim)
+
+
+def _scratch(lib, X, slots: int) -> torch.Tensor:
+    """The warpgroup route's B_hi, B_lo panels and padded mu for `slots` slots."""
+    return torch.empty(lib.gaussian_assign_wgmma_scratch(X.shape[1], slots), device=X.device, dtype=torch.float32)
 
 
 def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
@@ -157,24 +181,30 @@ def fused_gaussian_assign(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
     if X.device.type == "cpu":
         g = torch.Generator().manual_seed(int(seed.reshape(())))
         return gaussian_assign_plain(X, mu, binv, base, g, row_offset)
-    lib = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign")
+    lib, wgmma = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign")
     N, D = X.shape
     K = mu.shape[0]
     z = torch.empty(N, device=X.device, dtype=torch.int32)
     if N == 0:
         return z
+    ptrs = (X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(), seed.data_ptr(), z.data_ptr())
     with torch.cuda.device(X.device):
-        err = lib.gaussian_assign_launch(
-            X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
-            seed.data_ptr(), z.data_ptr(), N, D, K, row_offset,
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        if wgmma:
+            scratch = _scratch(lib, X, K)
+            err = lib.gaussian_assign_wgmma_launch(*ptrs, scratch.data_ptr(), N, D, K, row_offset, stream)
+        else:
+            err = lib.gaussian_assign_launch(*ptrs, N, D, K, row_offset, stream)
     _build.check(err, "gaussian_assign_launch")
     fused_gaussian_assign.launches += 1
+    if wgmma:
+        fused_gaussian_assign.wgmma += 1
+        profiling.count("assign.wgmma")
     return z
 
 
 fused_gaussian_assign.launches = 0
+fused_gaussian_assign.wgmma = 0  # launches on the warpgroup route
 
 
 def fused_gaussian_assign_chains(X: torch.Tensor, mu: torch.Tensor, binv: torch.Tensor,
@@ -194,21 +224,27 @@ def fused_gaussian_assign_chains(X: torch.Tensor, mu: torch.Tensor, binv: torch.
     if X.device.type == "cpu":
         g = torch.Generator().manual_seed(int(seed.reshape(())))
         return gaussian_assign_chains_plain(X, mu, binv, base, n_chains, g)
-    lib = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign_chains")
+    lib, wgmma = _launch_checks(X, mu, binv, base, seed, "fused_gaussian_assign_chains")
     N, D = X.shape
     K = mu.shape[0] // n_chains
     z = torch.empty((n_chains, N), device=X.device, dtype=torch.int32)
     if N == 0:
         return z
+    ptrs = (X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(), seed.data_ptr(), z.data_ptr())
     with torch.cuda.device(X.device):
-        err = lib.gaussian_assign_chains_launch(
-            X.data_ptr(), mu.data_ptr(), binv.data_ptr(), base.data_ptr(),
-            seed.data_ptr(), z.data_ptr(), N, D, K, n_chains,
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        if wgmma:
+            scratch = _scratch(lib, X, n_chains * K)
+            err = lib.gaussian_assign_chains_wgmma_launch(*ptrs, scratch.data_ptr(), N, D, K, n_chains, stream)
+        else:
+            err = lib.gaussian_assign_chains_launch(*ptrs, N, D, K, n_chains, stream)
     _build.check(err, "gaussian_assign_chains_launch")
     fused_gaussian_assign_chains.launches += 1
+    if wgmma:
+        fused_gaussian_assign_chains.wgmma += 1
+        profiling.count("assign.wgmma")
     return z
 
 
 fused_gaussian_assign_chains.launches = 0
+fused_gaussian_assign_chains.wgmma = 0  # launches on the warpgroup route

@@ -120,9 +120,11 @@ def test_cuda_assign_kernel_row_shards_equal_one_launch(cuda_device, cut):
     t = _assign_problem(4099, 256, 64, 0.3, 17, cuda_device)
     X, rest = t[0], t[1:]
     seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    before = ga.fused_gaussian_assign.wgmma
     whole = ga.fused_gaussian_assign(X, *rest, seed)
     parts = torch.cat([ga.fused_gaussian_assign(X[:cut].contiguous(), *rest, seed, row_offset=0),
                        ga.fused_gaussian_assign(X[cut:].contiguous(), *rest, seed, row_offset=cut)])
+    assert ga.fused_gaussian_assign.wgmma == before + 3  # D = 256: the warpgroup route
     v = ga.philox_scores(X, *rest, seed)
     top2 = v.topk(2, dim=-1).values
     tie = (top2[:, 0] - top2[:, 1]) <= 3e-5 * top2[:, 0].abs() + 1e-3
@@ -131,16 +133,19 @@ def test_cuda_assign_kernel_row_shards_equal_one_launch(cuda_device, cut):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [4, 203, 256, 384])
+@pytest.mark.parametrize("d", [4, 16, 64, 203, 256, 384])
 @pytest.mark.parametrize("k", [1, 5, 64])
 def test_cuda_assign_kernel_at_every_tiling(cuda_device, d, k):
-    """Draw for draw at a ragged N over the widths of the kernel's two
-    tilings (64 x 64 warp tiles and 32-input panels up to D = 256, 64 x 32
-    tiles and 16-input panels to D = 384), D = 203 filling no panel or
-    16-byte row; for one slot, a few and the main path's 64."""
+    """Draw for draw at a ragged N over the kernel's routes and tilings:
+    the warpgroup route at D = 4, 16 and 64 (one 64-wide product) and 256,
+    `mma.sync` at D = 203 (no 16-byte row; no panel filled) and 384 (64 x 32
+    warp tiles and 16-input panels); for one slot, a few and the main
+    path's 64."""
     t = _assign_problem(1000 + 37, d, k, 0.3, 100 * d + k, cuda_device)
     seed = torch.tensor([d + k], dtype=torch.int32, device=cuda_device)
+    before = ga.fused_gaussian_assign.wgmma
     z = ga.fused_gaussian_assign(*t, seed)
+    assert ga.fused_gaussian_assign.wgmma == before + (d not in (203, 384))
     if k == 1:
         assert torch.equal(z, torch.zeros_like(z))
     else:
@@ -160,11 +165,84 @@ def test_cuda_chains_kernel_at_the_main_path_width(cuda_device, c):
                         dtype=torch.float32, device=cuda_device)
     base = torch.tensor(r.normal(size=c * k), dtype=torch.float32, device=cuda_device)
     seed = torch.tensor([17], dtype=torch.int32, device=cuda_device)
+    before = ga.fused_gaussian_assign_chains.wgmma
     z = ga.fused_gaussian_assign_chains(X, mu, binv, base, seed, c)
+    assert ga.fused_gaussian_assign_chains.wgmma == before + 1
     for ch in range(c):
         sl = slice(ch * k, (ch + 1) * k)
         _assert_exact(z[ch], ga.philox_scores(X, mu[sl], binv[sl], base[sl], seed, chain=ch))
     assert torch.equal(z[0], ga.fused_gaussian_assign(X, mu[:k], binv[:k], base[:k], seed))
+
+
+def _card_problem(n, d, k, seed, device):
+    """`_assign_problem`'s rows and dense triangular B_k, drawn on the card
+    (the main path's 1M x 256 rows in well under a second)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mu = 0.3 * torch.randn((k, d), generator=g, device=device)
+    X = mu[torch.randint(0, k, (n,), generator=g, device=device)] + torch.randn((n, d), generator=g, device=device)
+    scale = 0.5 + torch.rand((k, 1, d), generator=g, device=device)
+    binv = torch.tril(torch.randn((k, d, d), generator=g, device=device) * d ** -0.5, -1)
+    binv = binv + torch.eye(d, device=device) * scale
+    return X, mu, binv.contiguous(), torch.randn(k, generator=g, device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_route_matches_plain_at_the_main_path_size(cuda_device):
+    """The warpgroup route at the main path's 1M x 256, K = 64: every row
+    is the argmax of its plain scores plus the kernel's Philox noise outside
+    the fp32 tie band, and the launch counts once in `launches` and once in
+    `wgmma`."""
+    n, d, k = 1 << 20, 256, 64
+    X, mu, binv, base = _card_problem(n, d, k, n + d, cuda_device)
+    seed = torch.tensor([2**31 - 7], dtype=torch.int32, device=cuda_device)
+    before = (ga.fused_gaussian_assign.launches, ga.fused_gaussian_assign.wgmma)
+    z = ga.fused_gaussian_assign(X, mu, binv, base, seed)
+    assert (ga.fused_gaussian_assign.launches, ga.fused_gaussian_assign.wgmma) == (before[0] + 1, before[1] + 1)
+    for a in range(0, n, 1 << 17):
+        b = min(n, a + (1 << 17))
+        _assert_exact(z[a:b], ga.philox_scores(X[a:b], mu, binv, base, seed, row0=a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset,route", [(256, 0, "wgmma"), (16, 0, "wgmma"), (203, 0, "mma"),
+                                            (384, 0, "mma"), (256, 1, "mma")])
+def test_cuda_assign_route_follows_width_and_alignment(cuda_device, d, offset, route):
+    """D and X's alignment alone choose the route: D = 203 (rows of no
+    whole 16-byte pieces), D = 384 (past the warpgroup route's 256) and an X
+    4 bytes off a 16-byte boundary take `mma.sync`, and draw as the plain
+    version does; the wrapper's `wgmma` counts only the warpgroup route."""
+    n, k = 1000 + 37, 9
+    X, mu, binv, base = _card_problem(n, d, k, d + offset, cuda_device)
+    if offset:
+        X = torch.cat([torch.zeros(offset, device=cuda_device), X.reshape(-1)])[offset:].view(n, d)
+    assert (X.data_ptr() % 16 == 0) == (offset == 0) and X.is_contiguous()
+    seed = torch.tensor([d], dtype=torch.int32, device=cuda_device)
+    before = ga.fused_gaussian_assign.wgmma
+    z = ga.fused_gaussian_assign(X, mu, binv, base, seed)
+    assert ga.fused_gaussian_assign.wgmma - before == (route == "wgmma")
+    _assert_exact(z, ga.philox_scores(X, mu, binv, base, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_counter_equals_launches_in_a_fused_sweep(cuda_device):
+    """In the program's record of fused sweeps at D = 256, the counter
+    `assign.wgmma` equals kernel 1's launches, one a sweep."""
+    from common_tpu_torch import models, rng, state as st
+    from common_tpu_torch.kernels import blocked
+    from common_tpu_torch.utils import profiling
+
+    n, d = 4096, 256
+    X, _, _, _ = _card_problem(n, d, 4, 3, cuda_device)
+    data = ((X, torch.ones(n, device=cuda_device)),)
+    defn = st.model_definition(n, [models.niw(d)], k_max=8)
+    s = st.initialize(defn, data, rng(0, cuda_device).generator, cluster_hp={"alpha": 1.0})
+    gen = rng(1, cuda_device).generator
+    before = ga.fused_gaussian_assign.launches
+    with profiling.recording() as rec:
+        for _ in range(3):
+            s = blocked.sweep_fused(s, data, gen)
+    assert ga.fused_gaussian_assign.launches - before == 3
+    assert rec.counters.get("assign.wgmma") == 3
 
 
 @pytest.mark.cuda

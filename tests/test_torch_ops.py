@@ -141,6 +141,20 @@ def test_cpu_assign_wrapper_is_the_plain_version_seeded():
     assert ga.fused_gaussian_assign.launches == before
 
 
+@pytest.mark.parametrize("d,offset,max_dim,want", [
+    (256, 0, 256, True), (200, 0, 256, True), (16, 0, 256, True), (4, 0, 256, True),
+    (203, 0, 256, False), (260, 0, 256, False), (384, 0, 384, False), (256, 1, 256, False),
+    (256, 0, 0, False)])
+def test_wgmma_route_follows_width_and_alignment(d, offset, max_dim, want):
+    """The warpgroup route takes D a multiple of 4 up to its device's widest
+    (and never past 256) with X on a 16-byte boundary; anything else goes to
+    `mma.sync`. The rule reads nothing but D, X's address and the width."""
+    buf = torch.zeros(3 * d + offset)
+    X = buf[offset:].view(3, d)
+    assert buf.data_ptr() % 16 == 0
+    assert ga.wgmma_route(X, min(max_dim, 256)) is want
+
+
 def test_wrappers_raise_on_devices_without_a_kernel_or_bad_shapes():
     X = torch.zeros(10, 3, device="meta")
     z = torch.zeros(10, dtype=torch.int32, device="meta")
