@@ -42,6 +42,14 @@ score_value over cluster-block suffstats.
 
 Every sampler takes an explicit `torch.Generator` on the state's device and
 consumes it in order (the JAX package folds a key per domain and entity).
+
+Under `utils.profiling.recording()`: `sweep` is the span `irm.sweep`, its
+theta draw `irm.theta`, each domain's table `irm.table` (counter
+`irm.table_chunks`, its chunks of cells), each domain's stick weights and
+Gumbel argmax `irm.assign`, a self-relational domain's loop
+`irm.sequential`, the rebuild `irm.restat` (counter `irm.restat_chunks` in
+`state.compute_relation_stats`); `assign` is `irm.collapsed`, a domain.
+None of them reads the device.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from common_tpu_torch.relational import state as irm_state
 from common_tpu_torch.relational.state import IRMState, _k_maxes
 from common_tpu_torch.rng import beta, gumbel, gumbel_argmax, standard_gamma, uniform_open
 from common_tpu_torch.state import _assignment_counts
-from common_tpu_torch.utils import segment
+from common_tpu_torch.utils import profiling, segment
 
 NOISE_ENTITIES = 4096     # entities whose Gumbel noise is drawn in one call
 TABLE_ELEMS = 1 << 25     # [cells, K] elements of one chunk of the blocked table
@@ -287,19 +295,20 @@ def assign(state: IRMState, views, generator: torch.Generator, domain: int = 0) 
     one, viewed as such.
     """
     views = irm_state.as_views(views)
-    st = _working_copy(state)
-    stacked = st.counts[domain].dim() == 2
-    work = st if stacked else map_tensors(lambda t: t.unsqueeze(0), st)
-    preps = _prepare(work, views, domain, _tx_payload(work))
-    n_p, K = work.counts[domain].shape
-    n = work.assignments[domain].shape[-1]
-    dt = work.cluster_hps[domain]["alpha"].dtype
-    for start in range(0, n, NOISE_ENTITIES):
-        noise = gumbel((min(NOISE_ENTITIES, n - start), n_p, K), generator, dt)
-        for i in range(noise.shape[0]):
-            e = start + i
-            logp, moves = _remove_and_score(work, preps, domain, e)
-            _add(work, preps, domain, e, torch.argmax(logp + noise[i], -1), moves)
+    with profiling.span("irm.collapsed"):
+        st = _working_copy(state)
+        stacked = st.counts[domain].dim() == 2
+        work = st if stacked else map_tensors(lambda t: t.unsqueeze(0), st)
+        preps = _prepare(work, views, domain, _tx_payload(work))
+        n_p, K = work.counts[domain].shape
+        n = work.assignments[domain].shape[-1]
+        dt = work.cluster_hps[domain]["alpha"].dtype
+        for start in range(0, n, NOISE_ENTITIES):
+            noise = gumbel((min(NOISE_ENTITIES, n - start), n_p, K), generator, dt)
+            for i in range(noise.shape[0]):
+                e = start + i
+                logp, moves = _remove_and_score(work, preps, domain, e)
+                _add(work, preps, domain, e, torch.argmax(logp + noise[i], -1), moves)
     return st
 
 
@@ -316,10 +325,11 @@ def assign_all(state: IRMState, views, generator: torch.Generator) -> IRMState:
 def _sample_block_params(state: IRMState, generator: torch.Generator):
     """theta for every cluster block of every relation (posterior draws;
     empty blocks draw from the prior)."""
-    return tuple(
-        lik.sample_params(generator, hyper, stats)
-        for lik, hyper, stats in zip(state.likelihoods(), state.hypers, state.suffstats)
-    )
+    with profiling.span("irm.theta"):
+        return tuple(
+            lik.sample_params(generator, hyper, stats)
+            for lik, hyper, stats in zip(state.likelihoods(), state.hypers, state.suffstats)
+        )
 
 
 def _theta_at_cells(theta, rel_domains, assignments, indices, free_axis):
@@ -370,22 +380,24 @@ def _domain_loglik_table(state: IRMState, views, thetas, domain: int):
     K = state.counts[domain].shape[-1]
     liks = state.likelihoods()
     dt = next(iter(thetas[0].values())).dtype
-    table = torch.zeros((n_d, K), dtype=dt, device=state.device)
     chunk = max(1, TABLE_ELEMS // K)
-    for r, view in enumerate(views):
-        doms = state.rel_domains[r]
-        for axis, dom in enumerate(doms):
-            if dom != domain:
-                continue
-            order, chunks = _table_layout(view, doms, axis, n_d, chunk)
-            for lo, hi, seg in chunks:
-                cells = order[lo:hi]
-                # a column at a time: index_select of the rows of a row-major [M, arity]
-                # tensor (as `shard_cells` makes) is many times slower on the card
-                ind = view.indices.t().index_select(1, cells).t()
-                th = _theta_at_cells(thetas[r], doms, state.assignments, ind, axis)
-                lp = liks[r].logpdf(th, view.values.index_select(0, cells)[:, None])
-                table += seg.sum(lp * view.mask.index_select(0, cells)[:, None].to(lp.dtype))
+    with profiling.span("irm.table"):
+        table = torch.zeros((n_d, K), dtype=dt, device=state.device)
+        for r, view in enumerate(views):
+            doms = state.rel_domains[r]
+            for axis, dom in enumerate(doms):
+                if dom != domain:
+                    continue
+                order, chunks = _table_layout(view, doms, axis, n_d, chunk)
+                profiling.count("irm.table_chunks", len(chunks))
+                for lo, hi, seg in chunks:
+                    cells = order[lo:hi]
+                    # a column at a time: index_select of the rows of a row-major [M, arity]
+                    # tensor (as `shard_cells` makes) is many times slower on the card
+                    ind = view.indices.t().index_select(1, cells).t()
+                    th = _theta_at_cells(thetas[r], doms, state.assignments, ind, axis)
+                    lp = liks[r].logpdf(th, view.values.index_select(0, cells)[:, None])
+                    table += seg.sum(lp * view.mask.index_select(0, cells)[:, None].to(lp.dtype))
     return table
 
 
@@ -405,32 +417,34 @@ def _sequential_given_theta(state: IRMState, views, thetas, domain: int, logw, g
     z_d = state.assignments[domain].clone()
     assignments = list(state.assignments)
     assignments[domain] = z_d
-    preps = _prepare(state, views, domain, lambda r, view, cells: {"x": view.values[cells]})
-    flat_theta = [_flat(thetas[p.rid], len(state.rel_domains[p.rid])) for p in preps]
-    ar = torch.arange(K, device=state.device)
-    for start in range(0, n_d, NOISE_ENTITIES):
-        noise = gumbel((min(NOISE_ENTITIES, n_d - start), K), generator, logw.dtype)
-        for i in range(noise.shape[0]):
-            e = start + i
-            logp = logw
-            for p, th_flat in zip(preps, flat_theta):
-                lo, hi, base, coef = p.bins(assignments, e)
-                bins_k = base[:, None] + coef[:, None] * ar[None, :]  # [n_c, K]
-                th = {k: v[bins_k] for k, v in th_flat.items()}
-                logp = logp + liks[p.rid].logpdf(th, p.payload["x"][lo:hi, None]).sum(0)
-            z_d[e] = torch.argmax(logp + noise[i])
+    with profiling.span("irm.sequential"):
+        preps = _prepare(state, views, domain, lambda r, view, cells: {"x": view.values[cells]})
+        flat_theta = [_flat(thetas[p.rid], len(state.rel_domains[p.rid])) for p in preps]
+        ar = torch.arange(K, device=state.device)
+        for start in range(0, n_d, NOISE_ENTITIES):
+            noise = gumbel((min(NOISE_ENTITIES, n_d - start), K), generator, logw.dtype)
+            for i in range(noise.shape[0]):
+                e = start + i
+                logp = logw
+                for p, th_flat in zip(preps, flat_theta):
+                    lo, hi, base, coef = p.bins(assignments, e)
+                    bins_k = base[:, None] + coef[:, None] * ar[None, :]  # [n_c, K]
+                    th = {k: v[bins_k] for k, v in th_flat.items()}
+                    logp = logp + liks[p.rid].logpdf(th, p.payload["x"][lo:hi, None]).sum(0)
+                z_d[e] = torch.argmax(logp + noise[i])
     return z_d
 
 
 def restat(state: IRMState, views) -> IRMState:
     """Counts and suffstats rebuilt from the assignments."""
     k_maxes = _k_maxes(state)
-    counts = tuple(_assignment_counts(a, k) for a, k in zip(state.assignments, k_maxes))
-    stats = tuple(
-        irm_state.compute_relation_stats(lik, state.hypers[r], state.rel_domains[r],
-                                         state.assignments, views[r], k_maxes)
-        for r, lik in enumerate(state.likelihoods())
-    )
+    with profiling.span("irm.restat"):
+        counts = tuple(_assignment_counts(a, k) for a, k in zip(state.assignments, k_maxes))
+        stats = tuple(
+            irm_state.compute_relation_stats(lik, state.hypers[r], state.rel_domains[r],
+                                             state.assignments, views[r], k_maxes)
+            for r, lik in enumerate(state.likelihoods())
+        )
     return dataclasses.replace(state, counts=counts, suffstats=stats)
 
 
@@ -438,15 +452,18 @@ def _sweep_domain(state: IRMState, views, thetas, domain: int, generator: torch.
                   group=None):
     """z_d | theta, z_-d: the new [N_d] assignment of one domain. With a
     process group, views are the rank's cells and the table is summed over
-    the group's ranks."""
-    logw = stick_break_log_weights(generator, state.counts[domain],
-                                   state.cluster_hps[domain]["alpha"])
+    the group's ranks. The table draws no noise, so the stick weights, drawn
+    after it, take the generator where a draw before it would."""
+    alpha = state.cluster_hps[domain]["alpha"]
     if _self_relational(state, domain):
+        logw = stick_break_log_weights(generator, state.counts[domain], alpha)
         return _sequential_given_theta(state, views, thetas, domain, logw, generator)
     table = _domain_loglik_table(state, views, thetas, domain)
     if group is not None:
         (table,) = mesh_mod.all_reduce_sum([table], group)
-    return gumbel_argmax(logw.to(table.dtype)[None, :] + table, generator).to(torch.int32)
+    with profiling.span("irm.assign"):
+        logw = stick_break_log_weights(generator, state.counts[domain], alpha)
+        return gumbel_argmax(logw.to(table.dtype)[None, :] + table, generator).to(torch.int32)
 
 
 def _sweep_domains(state: IRMState, views, generator: torch.Generator, group=None) -> IRMState:
@@ -466,7 +483,8 @@ def sweep(state: IRMState, views, generator: torch.Generator) -> IRMState:
     """One blocked sweep: theta | z, then z_d | theta, z_-d for each domain in
     turn, then the suffstats rebuilt from the new assignments."""
     views = irm_state.as_views(views)
-    return restat(_sweep_domains(state, views, generator), views)
+    with profiling.span("irm.sweep"):
+        return restat(_sweep_domains(state, views, generator), views)
 
 
 # ---------------------------------------------------------------------------

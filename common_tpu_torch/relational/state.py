@@ -30,7 +30,7 @@ from common_tpu_torch import state as mix_state
 from common_tpu_torch import validator
 from common_tpu_torch.likelihoods import base as lik_base
 from common_tpu_torch.models import model_descriptor
-from common_tpu_torch.utils import segment
+from common_tpu_torch.utils import profiling, segment
 
 
 STATS_CELLS = 1 << 22  # cells of one chunk of a suffstat rebuild
@@ -200,14 +200,19 @@ def compute_relation_stats(lik, hyper, rel_domains, assignments, view, k_maxes):
     most STATS_CELLS cells (so the sort's memory stays bounded), one sort of
     the chunk's observed cells by flat K-grid block, then an order-fixed
     segment sum a leaf (`utils.segment`), the chunks added in order: no
-    atomics and no host read. Masked and padding cells are dropped."""
+    atomics and no host read. Masked and padding cells are dropped. A few
+    blocks hold most cells once the clusters settle, so the sum is a tree
+    (`tree=True`): its time follows the chunk's size, not how the clusters
+    split the cells. Each chunk counts one `irm.restat_chunks` under
+    `profiling.recording()`."""
     shape = tuple(k_maxes[d] for d in rel_domains)
     total = int(np.prod(shape))
     out = None
     for lo in range(0, max(1, view.indices.shape[0]), STATS_CELLS):
+        profiling.count("irm.restat_chunks")
         cut = slice(lo, lo + STATS_CELLS)
         bins = _cell_bins(rel_domains, assignments, view.indices[cut], k_maxes)
-        blocks = segment.segments(torch.where(view.mask[cut] > 0, bins, total), total)
+        blocks = segment.segments(torch.where(view.mask[cut] > 0, bins, total), total, tree=True)
         part = {k: blocks.sum(t) for k, t in lik.tx(hyper, view.values[cut], view.mask[cut]).items()}
         out = part if out is None else {k: out[k] + part[k] for k in out}
     return {k: v.reshape(*shape, *v.shape[1:]) for k, v in out.items()}

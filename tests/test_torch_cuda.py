@@ -482,6 +482,35 @@ def test_cuda_segment_sum_replays_and_never_waits(cuda_device, rows, event, n):
     assert ((a.cpu().double() - want).abs() <= 4161 * 2.0 ** -24 * size).all()
 
 
+@pytest.mark.cuda
+def test_cuda_tree_segment_sum_replays_and_never_waits(cuda_device):
+    """The tree layout (`segments(..., tree=True)`, the IRM restat's) at a
+    restat chunk's shape, 4M scalars into 1024 blocks with two blocks
+    holding most rows: two calls equal bit for bit, no host wait, the CPU's
+    sum equal bit for bit, and no level's thread sums more than PIECE."""
+    from common_tpu_torch.utils import segment
+
+    r = np.random.default_rng(1)
+    rows, n = 1 << 22, 1024
+    ids = torch.from_numpy(np.where(r.random(rows) < 0.9, r.integers(0, 2, rows), r.integers(0, n + 1, rows)))
+    values = torch.from_numpy(r.normal(size=rows).astype(np.float32))
+    ids_d, values_d = ids.to(cuda_device), values.to(cuda_device)
+    segment.segments(ids_d, n, tree=True).sum(values_d)  # first use: library set-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layout = segment.segments(ids_d, n, tree=True)
+        a, b = layout.sum(values_d), layout.sum(values_d)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), segment.segments(ids, n, tree=True).sum(values))
+    assert len(layout.inner) == 2
+    for offsets in (layout.pieces, *layout.inner, layout.first):
+        assert int(torch.diff(offsets).max()) <= segment.PIECE
+
+
 # each bench tier at a small shape on the card, and the kernels its path launches
 BENCH_TIERS = {
     "run_tier(fused)": (lambda b, dev: b.run_tier(4096, 32, 16, 3, 0, kernel="fused", heldout=64, device=dev),

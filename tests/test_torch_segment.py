@@ -9,6 +9,8 @@ each segment's rows in row order, cut every PIECE rows from the segment's
 start, each piece summed in order, then the pieces in order. So the sum of
 one segment does not move when dropped rows or other segments' rows are
 added, removed or shuffled, and a layout built once serves every leaf.
+The tree layout (`tree=True`) is held the same way to its own order, and to
+its bound: no thread of any level sums more than PIECE rows or pieces.
 """
 
 import numpy as np
@@ -131,3 +133,83 @@ def test_no_rows_and_no_segments():
     assert torch.equal(segment.segment_sum(torch.zeros((0, 2)), torch.zeros(0, dtype=torch.int64), 3),
                        torch.zeros((3, 2)))
     assert segment.segment_sum(torch.ones(4), torch.zeros(4, dtype=torch.int64), 0).shape == (0,)
+
+
+def _tree_reference(values, ids, n):
+    """The tree's order, in Python: each segment's rows cut PIECE at a time
+    from its start and each piece summed in order, then the same again on
+    the pieces, level by level, while a segment of all the rows would have
+    more than PIECE pieces; the last level's pieces summed in order."""
+    bound = len(ids)
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype)
+    for e in range(n):
+        rows, b = list(values[ids == e]), bound
+        while True:
+            pieces = []
+            for lo in range(0, len(rows), PIECE):
+                piece = torch.zeros(values.shape[1:], dtype=values.dtype)
+                for row in rows[lo:lo + PIECE]:
+                    piece = piece + row
+                pieces.append(piece)
+            rows = pieces
+            if -(-b // PIECE) <= PIECE:
+                break
+            b = -(-b // PIECE)
+        total = torch.zeros(values.shape[1:], dtype=values.dtype)
+        for piece in rows:
+            total = total + piece
+        out[e] = total
+    return out
+
+
+# a few long segments, as the IRM restat's blocks once the clusters settle
+LONG = [3 * PIECE * PIECE + 5, 0, 17, PIECE * PIECE, 1, 2 * PIECE + 1]
+
+
+@pytest.mark.parametrize("lengths, levels", [(RAGGED, 0), (LONG, 1), ([PIECE ** 3 + 1, 3], 2)])
+def test_tree_levels_bound_every_thread(lengths, levels):
+    """`tree=True` adds a level while a segment of all the rows could have
+    more than PIECE pieces, the count following from the rows alone; at
+    every level no thread sums more than PIECE rows or pieces."""
+    ids, _ = _rows(lengths, (), seed=5, dropped=3)
+    layout = segment.segments(torch.from_numpy(ids), len(lengths), tree=True)
+    assert len(layout.inner) == levels
+    for offsets in (layout.pieces, *layout.inner, layout.first):
+        assert int(torch.diff(offsets).max()) <= PIECE
+    assert segment.segments(torch.from_numpy(ids), len(lengths)).inner == ()
+
+
+@pytest.mark.parametrize("event", [(), (3,)])
+def test_tree_segment_sum_matches_float64_and_its_order(event):
+    """The tree's float32 sums lie within their rounding of a float64
+    index_add_, equal its Python order bit for bit, and on integer addends
+    equal the two-level sum exactly."""
+    ids, values = _rows(LONG, event, seed=6, dropped=30)
+    n = len(LONG)
+    t_ids, v = torch.from_numpy(ids), torch.from_numpy(values).float()
+    keep = (ids >= 0) & (ids < n)
+    layout = segment.segments(t_ids, n, tree=True)
+    got = layout.sum(v)
+    want = torch.zeros((n, *event), dtype=torch.float64).index_add_(
+        0, torch.from_numpy(ids[keep]), torch.from_numpy(values[keep]))
+    scale = float(np.abs(values).max()) * max(LONG)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=4e-7 * scale)
+    assert torch.equal(got, _tree_reference(v, t_ids, n))
+    counts = torch.from_numpy(np.round(values * 10)).float()
+    assert torch.equal(layout.sum(counts), segment.segment_sum(counts, t_ids, n))
+
+
+def test_tree_on_a_sorted_chunk():
+    """`sorted_segments(..., tree=True)` of a slice of sorted rows sums that
+    slice's part of each segment."""
+    ids, values = _rows(LONG, (), seed=7, dropped=4)
+    n = len(LONG)
+    key = np.where((ids >= 0) & (ids < n), ids, n)
+    order = np.argsort(key, kind="stable")
+    key, v = torch.from_numpy(key[order]), torch.from_numpy(values[order])
+    lo, hi = 100, len(key) - 5000
+    k = key[lo:hi]
+    seg = segment.sorted_segments(k, n, tree=True)
+    assert len(seg.inner) == 1
+    want = torch.zeros(n, dtype=torch.float64).index_add_(0, k[k < n], v[lo:hi][k < n])
+    np.testing.assert_allclose(seg.sum(v[lo:hi]).numpy(), want.numpy(), rtol=1e-12, atol=1e-9)

@@ -107,8 +107,43 @@ def _hdp_dense_run():
     return [run.get_latent(), run.score_trace, run.assignment_trace]
 
 
+IRM_N, IRM_K, IRM_STEPS, IRM_CHUNK, IRM_STATS = (30, 24), 4, 2, 100, 256
+
+
+def _irm_start():
+    """A bipartite bb relation (domain 0 x domain 1) and a self-relation on
+    domain 1: domain 0's blocked step builds a table, domain 1's runs the
+    sequential loop."""
+    from common_tpu_torch import relational as irm
+    from common_tpu_torch.data import sparse_ndarray_dataview
+
+    r = np.random.default_rng(3)
+    n0, n1 = IRM_N
+    rels = [r.random((n0, n1)) < 0.3, r.random((n1, n1)) < 0.5]
+    views = irm.as_views([sparse_ndarray_dataview(dense=x.astype(np.float32), device="cpu") for x in rels])
+    defn = irm.model_definition([n0, n1], [((0, 1), models.bb), ((1, 1), models.bb)], k_max=IRM_K)
+    return views, irm.initialize(defn, views, _gen(12), cluster_hps=[{"alpha": 1.0}] * 2)
+
+
+def _irm_run():
+    """Runner steps of [assign_blocked, assign over domain 0], with a table
+    chunk of IRM_CHUNK cells and a restat chunk of IRM_STATS cells."""
+    from common_tpu_torch.relational import kernels
+    from common_tpu_torch.relational import state as irm_state
+
+    saved = kernels.TABLE_ELEMS, irm_state.STATS_CELLS
+    kernels.TABLE_ELEMS, irm_state.STATS_CELLS = IRM_CHUNK * IRM_K, IRM_STATS
+    try:
+        views, s = _irm_start()
+        run = runner(None, views, s, [("assign_blocked", {}), ("assign", {"domain": 0})])
+        run.run(_gen(13), IRM_STEPS)
+    finally:
+        kernels.TABLE_ELEMS, irm_state.STATS_CELLS = saved
+    return [run.get_latent(), run.score_trace, run.assignment_trace]
+
+
 RUNS = {"slice_hp": _slice_hp_run, "sweep_fused": _sweep_fused_run, "run_blocked": _run_blocked_run,
-        "hdp_dense": _hdp_dense_run}
+        "hdp_dense": _hdp_dense_run, "irm": _irm_run}
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +241,30 @@ def test_hdp_dense_spans_and_counters(recorded):
     assert parents[("hdp.topic_word", "hdp.sweep")] == parents[("hdp.beta", "runner.beta")] == n
     assert rec.reads(within="runner.step") == {}
     assert rec.reads() == {"hdp.max_count": 1, "runner.trace": 1, "runner.saturated": 1}
+
+
+def test_irm_spans_and_counters(recorded):
+    """Runner steps of the IRM: the blocked sweep and its stages (a table and
+    an assignment for the bipartite domain, the sequential loop for the
+    self-relational one), the collapsed step, a chunk of the table's cells and
+    of each relation's restat counted each (the start's restat too); no read
+    inside a step."""
+    rec = recorded["irm"][2]
+    s = rec.summary()
+    n = IRM_STEPS
+    assert {k: v["calls"] for k, v in s.items()} == {
+        "runner.step": n, "runner.assign_blocked": n, "runner.assign": n, "irm.sweep": n, "irm.theta": n,
+        "irm.table": n, "irm.assign": n, "irm.sequential": n, "irm.restat": n, "irm.collapsed": n,
+        "read.runner.trace": 1, "read.runner.saturated": 1}
+    n0, n1 = IRM_N
+    restat_chunks = math.ceil(n0 * n1 / IRM_STATS) + math.ceil(n1 * n1 / IRM_STATS)
+    assert rec.counters == {"irm.table_chunks": n * math.ceil(n0 * n1 / IRM_CHUNK),
+                            "irm.restat_chunks": (1 + n) * restat_chunks}
+    parents = Counter((r[0], rec.spans[r[3]][0] if r[3] >= 0 else None) for r in rec.spans)
+    assert parents[("irm.sweep", "runner.assign_blocked")] == parents[("irm.collapsed", "runner.assign")] == n
+    for child in ("irm.theta", "irm.table", "irm.assign", "irm.sequential", "irm.restat"):
+        assert parents[(child, "irm.sweep")] == n, child
+    assert rec.reads(within="runner.step") == {}
 
 
 def test_sweep_fused_spans(recorded):
